@@ -1,11 +1,12 @@
-"""gpufluidsimulator_tpu — a TPU-native SPH fluid simulation framework.
+"""gpufluidsimulator_tpu — an SPH fluid simulation framework in JAX.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of the CUDA reference
-``oadrian/GPUFluidSimulator`` (see SURVEY.md): WCSPH with poly6/spiky kernels,
-uniform-grid neighbor search on a fixed-capacity cell table, fused Pallas
-density/force kernels, whole-trajectory ``lax.scan`` stepping, spatial
-``shard_map`` sharding with ``ppermute`` halo exchange, and a device-side
-point-splat renderer replacing the OpenGL path.
+A JAX/XLA/Pallas rebuild of the capabilities of the CUDA reference
+``oadrian/GPUFluidSimulator`` (see SURVEY.md), running on NVIDIA GPUs (and
+on the CPU for tests): WCSPH with poly6/spiky kernels, uniform-grid
+neighbor search on a fixed-capacity cell table, fused Triton density/force
+sweeps, whole-trajectory ``lax.scan`` stepping, spatial ``shard_map``
+sharding with ``ppermute`` halo exchange, and a device-side point-splat
+renderer replacing the OpenGL path.
 """
 
 __version__ = "0.1.0"

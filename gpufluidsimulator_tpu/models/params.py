@@ -5,7 +5,7 @@ memory (SURVEY.md §2 "SimParams/constants"; BASELINE.json north_star names the
 parameter surface: domain bounds, kernel radius ``h``, rest density, stiffness,
 viscosity, scene selection, particle count).
 
-TPU-native design: a frozen, hashable dataclass used as a *static* jit
+Design: a frozen, hashable dataclass used as a *static* jit
 argument.  Every field is a Python scalar/tuple, so the whole params object is
 baked into the compiled XLA program exactly like ``__constant__`` memory is
 baked into a CUDA kernel — zero per-step transfer cost, and XLA constant-folds
@@ -50,16 +50,13 @@ class SimParams:
     tait_gamma: float = 7.0
     # --- uniform-grid neighbor structure (configs 2+) -----------------------
     cell_size: float = 0.0             # 0.0 -> defaults to h
-    # Per-axis binning cell sizes (overrides cell_size when non-empty).
-    # The round-3 padding attack (BASELINE.md): an ANISOTROPIC cell
-    # (dx, 2dx[, 2dx]) with the fine axis on x — extra x-stencil offsets
-    # are query lane-rolls that share each trip's candidate reads, while
-    # exact-integer-multiple y/z windows are alias-free on lattice-coherent
-    # flow, so cell occupancy concentrates near its mean instead of
-    # aliasing over 1..8 and the per-block rank bounds stop saturating.
-    # Axis 0 may be < h (the kernels widen the x stencil to
-    # ceil(h/cell_x) lane-rolls); other axes must stay >= h (their
-    # stencil halfwidth is fixed at 1).
+    # Per-axis binning cell sizes (overrides cell_size when non-empty),
+    # supported by the gridded tier: an ANISOTROPIC cell (dx, 2dx[, 2dx])
+    # with the fine axis on x keeps occupancy near its mean on
+    # lattice-coherent flow (exact-integer-multiple y/z windows are
+    # alias-free).  Axis 0 may be < h (the x stencil widens to
+    # ceil(h/cell_x) cells); other axes must stay >= h (their stencil
+    # halfwidth is fixed at 1).
     cell_aniso: Tuple[float, ...] = ()
     # K: fixed particle slots per cell.  Mean occupancy at cell=h is ~2.2
     # (3D lattice, h = 1.3 dx); 8 covers the compressed tail with margin.
@@ -168,7 +165,7 @@ class SimParams:
             if self.x_halfwidth > 3:
                 raise ValueError(
                     f"cell_aniso[0]={self.cell_aniso[0]} needs an x-stencil "
-                    f"halfwidth {self.x_halfwidth} > 3 (VMEM/accumulator "
+                    f"halfwidth {self.x_halfwidth} > 3 (the gridded tier's "
                     "budget caps it at 3)")
         if self.cont_form not in ("relax", "sum", "rate"):
             raise ValueError(f"unknown cont_form {self.cont_form!r}")

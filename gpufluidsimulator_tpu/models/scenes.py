@@ -56,7 +56,7 @@ def _derive(n_request: int, fluid_vol: float, dim: int, height: float,
                        bounds_min=bounds[0], bounds_max=bounds[1],
                        obstacles=tuple(obstacles))
     # binning-only layout fix: fold grids that land just past an x-tile /
-    # y-routing-tile boundary back under it (see planes.snap_cell)
+    # y-block boundary back under it (see planes.snap_cell)
     from ..ops.planes import snap_cell
 
     return snap_cell(params)

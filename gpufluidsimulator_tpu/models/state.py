@@ -1,7 +1,7 @@
 """Particle state pytree.
 
 Reference counterpart: the device buffers owned by the ``ParticleSystem`` host
-class (pos/vel/density/pressure, SURVEY.md §1 L1).  TPU-native design: a pure
+class (pos/vel/density/pressure, SURVEY.md §1 L1).  Here: a pure
 functional NamedTuple pytree — no mutation, no host class; ``step`` maps
 State -> State under jit, and the whole trajectory lives in one ``lax.scan``.
 """

@@ -4,9 +4,8 @@ Reference counterparts: ``calcHashKernel`` (position -> linearized cell id),
 ``thrust::sort_by_key`` particle binning, and
 ``reorderDataAndFindCellStartKernel`` (SURVEY.md §2, §3.1).
 
-TPU-native design (SURVEY.md §2 "TPU-native equivalent" column): TPU has no
-dynamic-length per-cell lists, so the variable-length cellStart/cellEnd tables
-are replaced by a **fixed-capacity dense cell table** of shape
+Design: instead of variable-length cellStart/cellEnd ranges, a
+**fixed-capacity dense cell table** of shape
 ``(num_cells, K, ...)``:
 
   1. cell id per particle  (vectorised floor-divide + ravel)

@@ -1,17 +1,17 @@
-"""Gridded SPH density/forces in pure XLA (config 2: 65k, single chip).
+"""Gridded SPH density/forces in pure XLA (config 2: 65k, single device).
 
 Reference counterparts: ``computeDensityPressureKernel`` and
 ``computeForcesKernel`` — the two hot 27-cell neighbor-sweep kernels
 (SURVEY.md §3.1).
 
-TPU-native design: all work happens in the *dense cell-table layout*
+Design: all work happens in the *dense cell-table layout*
 ``(C, K, ...)`` built by ops/grid.py.  The 3^d neighbor stencil becomes 3^d
 static *linear cell offsets*; "visit neighbor cell" is a static slice of a
 once-padded dense array — no wraparound and no data-dependent control flow.
 Each stencil offset contributes a fully vectorised (C, K, K) pair block that
 XLA fuses into the accumulation, so nothing of size (C, K, 3^d K) is ever
 materialised.  Pair distances use direct coordinate differences, the same
-numerical policy as the Pallas kernels (the |a|^2+|b|^2-2ab MXU expansion
+numerical policy as the rank-plane sweeps (the |a|^2+|b|^2-2ab expansion
 loses ~3 digits near r->0 and is not used anywhere — see ops/pallas_sph.py).
 """
 

@@ -1,22 +1,30 @@
-"""Fused Pallas TPU kernels for the SPH neighbor sweeps (config 3+).
+"""The SPH neighbour sweeps over the rank-planar cell grid (config 3+).
 
 Reference counterparts: ``computeDensityPressureKernel`` and
-``computeForcesKernel`` — the two hot CUDA kernels (SURVEY.md §3.1).  This is
-NOT a translation: the CUDA kernels are one-thread-per-particle with gather
-loops; TPUs have no per-lane gather, so the sweep is restructured around the
-rank-planar layout (ops/planes.py):
+``computeForcesKernel`` — the two hot CUDA kernels (SURVEY.md §3.1), one
+thread per cell-sorted particle looping over the 27 neighbour cells.  The
+rank planes (ops/planes.py) are that cell-sorted structure with a fixed
+capacity of K slots per cell instead of ``cellEnd``; every sweep reads them
+in one of two ways, chosen once from the platform (``sweep_impl``):
 
-  * grid = (z-planes, y-blocks); each program owns an (8 y-rows x 128 x-cells)
-    tile of cells and all K rank planes above it.
-  * the 3^d-cell stencil is: z -> choice of slab ref, y -> static sublane
-    slice of a 24-sublane row window, x -> lane roll of the query.  Zero
-    gathers, zero dynamic shapes, every vector op runs on a full native
-    (8, 128) tile.
-  * per-block occupancy bounds (scalar-prefetched) bound the rank loops, so
-    the fixed-capacity padding (K=8 vs ~2.2 mean occupancy) costs almost
-    nothing: `fori_loop(0, occ)` instead of K iterations.
-  * empty slots hold sentinel positions -> smoothing kernels evaluate to
-    exactly 0 against them; no masks in the hot loop beyond the r>0 guard.
+  * ``"triton"`` (GPU): a Pallas kernel through Triton.  One program owns a
+    tile of a few y rows x 128 x cells at one z plane, one query
+    slot per lane.  Neighbour cells are plain pointer offsets into the
+    flattened plane (the layout's ghost rows, ghost planes and halo lanes
+    keep every offset in bounds), source ranks loop up to the block's own
+    occupancy bound, accumulators live in registers and nothing is carried
+    between programs.
+  * ``"plain"`` (CPU, and the reference the kernel is tested against): the
+    same pair math in ``jax.numpy`` over static shifted slices of the
+    planes, all K source ranks, with empty slots neutralised by their
+    sentinel positions.
+
+Both compute the identical per-pair terms (``_density_pair`` and
+``_ForceMath``), so they differ only in summation order.  Outputs are
+defined on the query region (interior z planes, the y rows of the interior
+blocks, all x lanes); on empty or non-owning slots they hold the fill
+values (0, or the sentinel for post-step positions).  The Triton kernel
+leaves slots outside the query region unwritten; every consumer masks them.
 
 Distances use direct coordinate differences in f32 (positions are O(1) in
 domain units; the |a|^2-2ab expansion would lose ~3 digits near r->0).
@@ -25,790 +33,607 @@ domain units; the |a|^2-2ab expansion would lose ~3 digits near r->0).
 from __future__ import annotations
 
 import functools
-from typing import Sequence
+import math
 
 import jax
 import jax.numpy as jnp
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from ..models.params import SimParams
 from . import kernels, physics
 from . import planes as pm
-from . import route
-from .planes import LANES, ROWS_PER_BLOCK, PlaneGeom
+from .planes import LANES, ROWS_PER_BLOCK, TILE_X, PlaneGeom
+
+# Triton launch shapes, (y rows per program -> rows * 128 query slots,
+# warps per program, software-pipeline stages of the rank loops), chosen by
+# measurement on the H100 at config 4 (PERF.md).
+DENSITY_LAUNCH = (2, 4, 2)
+FORCE_LAUNCH = (1, 4, 2)
 
 
-def _interpret() -> bool:
-    return jax.default_backend() != "tpu"
+def sweep_impl(platform: str = None) -> str:
+    """The sweep implementation for a JAX platform: the Triton kernel on the
+    GPU, the plain version on the CPU.  Any other platform is an error."""
+    platform = platform or jax.default_backend()
+    if platform == "gpu":
+        return "triton"
+    if platform == "cpu":
+        return "plain"
+    raise RuntimeError(f"no SPH sweep implementation for platform "
+                       f"{platform!r} (supported: gpu, cpu)")
 
 
-def _roll_x(tile, dx: int):
-    """Candidate tile for x-offset dx: lane l holds cell (l + dx)."""
-    if dx == 0:
-        return tile
-    return pltpu.roll(tile, (-dx) % LANES, axis=1)
+def _dzs(dim: int):
+    return (-1, 0, 1) if dim == 3 else (0,)
 
 
-def _build_windows(scr, refs, n_fields: int, dzs: Sequence[int]):
-    """Assemble row windows from the 3 y-block refs per dz.
+# --------------------------------------------------------------------------
+# pair math shared by both implementations
+# --------------------------------------------------------------------------
 
-    The window occupies rows 7:17 of a 24-sublane scratch: row 7 = the last
-    row of the y-block below, rows 8:16 = the query block (a full
-    (8, 128)-tile-ALIGNED copy), row 16 = the first row of the block above.
-    Candidate reads slice rows (dy+7):(dy+15); query reads rows 8:16
-    (aligned).
+def _density_pair(q, c, acc, h2, dim: int):
+    ddx = q[0] - c[0]
+    ddy = q[1] - c[1]
+    r2 = ddx * ddx + ddy * ddy
+    if dim == 3:
+        ddz = q[2] - c[2]
+        r2 = r2 + ddz * ddz
+    d = jnp.maximum(h2 - r2, 0.0)
+    return acc + d * d * d
 
-    NEGATIVE RESULT (kept as the 9-full-block fetch): pre-gathering the two
-    needed neighbor rows into a compact (n_by, 2, 128) edge array and
-    fetching (2, 128) edge blocks instead of full neighbor blocks cut the
-    per-program stencil fetch bytes 2.4x — and made BOTH sweeps SLOWER
-    (force 13.6 -> 14.5 ms, density 7.1 -> 7.6 @1.47M, plus 1.4+0.7 ms of
-    XLA edge builds).  The pipeline DMA that a no-compute probe measures at
-    4.8/2.7 ms per sweep overlaps the rank-loop compute almost entirely in
-    the real kernels; the redundant fetches are effectively free, and the
-    extra specs/builds are pure loss.  (Single-row BlockSpecs are illegal
-    in the sublane dim, so a direct 1-row fetch is not expressible.)
+
+def fold_eos(field_planes, rho_planes, params: SimParams):
+    """Per-slot force-sweep factors from density: (m_spiky p/rho^2,
+    sqrt(visc coef m mu)/rho), with empty slots at rest density.  Computed
+    once per step so the pair loop reads them instead of re-evaluating the
+    EOS for every candidate."""
+    rest = params.rest_density
+    valid = field_planes[0] < pm.SENTINEL * 0.5
+    rho_c = jnp.where(valid, jnp.maximum(rho_planes, 1e-3 * rest), rest)
+    pres = physics.eos_pressure(rho_c, params)
+    fm = _ForceMath(params)
+    return jnp.stack([fm.m_spiky * pres / (rho_c * rho_c),
+                      fm.m_visc_sqrt / rho_c])
+
+
+class _ForceMath:
+    """Constants and per-pair / per-query terms of the fused force sweep.
+
+    Query and candidate channels: 0:x 1:y 2:z 3:vx 4:vy 5:vz
+    6:m_spiky*p/rho^2 7:m_visc_sqrt/rho (``fold_eos``), plus for the query
+    an optional 8th channel kappa*rho_i/m_visc_sqrt (delta-SPH).
+
+    Continuity tier (``continuity``): the density input is the CARRIED rho
+    of the incremental path, and the pair loop also accumulates next step's
+    density in one of three forms (SimParams.cont_form):
+
+      * "rate": drho/dt = sum_j m (v_i-v_j).gradW with the POLY6 gradient
+        (the chain-rule identity d/dt sum m W(x_ij) holds only for the
+        kernel the summation density uses), emitted as the explicit-Euler
+        update rho + dt*drho/dt and re-synced by a periodic summation
+        sweep (ops/inc.RESUM_EVERY).  Optional delta-SPH diffusion rides
+        the same accumulator.
+      * "relax": the rate update relaxed toward the concurrent summation,
+        rho' = (1-l)(rho + dt drho) + l R(x), folded into the single
+        accumulator as d4*(dot + kappa_d2*d2).
+      * "sum": the exact poly6 summation R(x) at the step's input
+        positions, read one step stale by the next EOS.  (Completing it to
+        R + dt dR/dt double-corrects against the deferred correction.)
+
+    The deferred-correction pressure term (SimParams.cont_beta) and the
+    optional Monaghan alpha viscosity (cont_alpha) act on approaching pairs
+    and reuse the continuity accumulation's d2^2*dot product.
     """
-    for i, dz in enumerate(dzs):
-        r0, r1, r2 = refs[i]
-        scr[i, 0:n_fields, :, ROWS_PER_BLOCK - 1:ROWS_PER_BLOCK, :] = \
-            r0[:, :, 0, 0, ROWS_PER_BLOCK - 1:ROWS_PER_BLOCK, :]
-        scr[i, 0:n_fields, :, ROWS_PER_BLOCK:2 * ROWS_PER_BLOCK, :] = \
-            r1[:, :, 0, 0, :, :]
-        scr[i, 0:n_fields, :, 2 * ROWS_PER_BLOCK:2 * ROWS_PER_BLOCK + 1, :] \
-            = r2[:, :, 0, 0, 0:1, :]
+
+    def __init__(self, params: SimParams, continuity: bool = False):
+        p = params
+        self.p = p
+        self.dim = p.dim
+        self.continuity = continuity
+        self.h = p.h
+        self.h2 = p.h * p.h
+        c_poly6 = kernels.poly6_coef(p.h, p.dim) * p.particle_mass
+        spiky = -kernels.spiky_grad_coef(p.h, p.dim) * p.particle_mass
+        self.c_poly6 = c_poly6
+        self.m_spiky = spiky
+        self.m_visc_sqrt = math.sqrt(kernels.visc_lap_coef(p.h, p.dim)
+                                     * p.particle_mass * p.viscosity)
+        # continuity: drho = dt * m * sum((vi-vj) . grad W_poly6), grad
+        # W_poly6 = -6 c (h^2-r^2)^2 d; negative scale: approaching pairs
+        # (dv.dd < 0) raise the density
+        self.drho_scale = -6.0 * p.dt * c_poly6
+        self.sum_form = continuity and p.cont_form == "sum"
+        self.relax_form = continuity and p.cont_form == "relax"
+        lam = p.cont_relax if self.relax_form else 0.0
+        self.kappa_d2 = (lam * c_poly6 / ((1.0 - lam) * self.drho_scale)
+                         if self.relax_form and lam < 1.0 else 0.0)
+        self.one_m_l = 1.0 - lam
+        # Monaghan alpha: Pi = alpha c h (-mu)/rho0 on approaching pairs
+        self.use_alpha = continuity and p.cont_alpha > 0.0
+        self.c_av = spiky * p.cont_alpha * p.sound_speed * p.h \
+            / p.rest_density
+        self.eps_h2 = 0.01 * p.h * p.h
+        # delta-SPH: sr += d2^2 * (dot - kappa*(1 - rho_i/rho_j)); 1/rho_j
+        # comes off the candidate's viscosity channel, so it needs mu > 0
+        self.use_delta = (continuity and not self.sum_form
+                          and p.cont_delta > 0.0 and p.viscosity > 0.0)
+        self.kappa = 2.0 * p.cont_delta * p.h * p.sound_speed
+        self.kappa_over_mv = self.kappa / (self.m_visc_sqrt or 1.0)
+        # deferred-correction pressure fold, clamped at the 20%-overdensity
+        # pressure scale (an acoustic stabilizer, not a collision force)
+        self.use_corr = continuity and p.cont_beta > 0.0
+        self.c_corr = (p.cont_beta * spiky * 12.0 * c_poly6 * p.stiffness
+                       * p.dt / (p.rest_density ** 2))
+        self.corr_cap = spiky * p.stiffness * 0.2 / p.rest_density
+
+    @property
+    def n_acc(self) -> int:
+        return 5 if self.continuity else 4
+
+    def pair(self, q, c, acc):
+        """Accumulate one candidate into (ax, ay, az, sum coef_v[, sr]).
+        The self pair needs no guard: every difference is exactly 0, so
+        both force terms vanish, and the r2 clamp keeps coef_p finite."""
+        dim = self.dim
+        qx, qy, qz, qvx, qvy, qvz, qp, qir = q[:8]
+        cx, cy, cz, cvx, cvy, cvz, cp, cir = c
+        ax, ay, az, sv = acc[:4]
+        ddx = qx - cx
+        ddy = qy - cy
+        r2 = ddx * ddx + ddy * ddy
+        if dim == 3:
+            ddz = qz - cz
+            r2 = r2 + ddz * ddz
+        inv_r = jax.lax.rsqrt(jnp.maximum(r2, 1e-16))
+        r = r2 * inv_r
+        hr = jnp.maximum(self.h - r, 0.0)
+        g = hr * hr * inv_r
+        psum = qp + cp
+        if self.continuity:
+            dot = (qvx - cvx) * ddx + (qvy - cvy) * ddy
+            if dim == 3:
+                dot = dot + (qvz - cvz) * ddz
+            d2 = jnp.maximum(self.h2 - r2, 0.0)
+            d4 = d2 * d2
+            t_dot = d4 * dot
+            if self.use_corr:
+                psum = psum - jnp.clip(self.c_corr * t_dot,
+                                       -self.corr_cap, self.corr_cap)
+            if self.use_alpha:
+                rr = jax.lax.rsqrt(r2 + self.eps_h2)
+                psum = psum - self.c_av * jnp.minimum(dot * (rr * rr), 0.0)
+        coef_p = psum * g
+        # viscosity mu m (vb-va) lap(r)/(ra rb): the -va term factors out
+        # of the pair loop as -qv * sum(coef_v) (see finish)
+        coef_v = hr * (qir * cir)
+        sv = sv + coef_v
+        ax = ax + coef_p * ddx + coef_v * cvx
+        ay = ay + coef_p * ddy + coef_v * cvy
+        if dim == 3:
+            az = az + coef_p * ddz + coef_v * cvz
+        if not self.continuity:
+            return ax, ay, az, sv
+        sr = acc[4]
+        if self.sum_form:
+            sr = sr + d4 * d2
+        elif self.relax_form:
+            sr = sr + d4 * (dot + self.kappa_d2 * d2)
+        elif self.use_delta:
+            sr = sr + d4 * ((dot - self.kappa) + q[8] * cir)
+        else:
+            sr = sr + t_dot
+        return ax, ay, az, sv, sr
+
+    def finish(self, q, acc):
+        """-> [ax, ay, az(, sr)] with the factored viscosity term applied
+        (2D: the vz channel is all-zero)."""
+        out = [acc[c] - q[3 + c] * acc[3] for c in range(3)]
+        if self.continuity:
+            out.append(acc[4])
+        return out
+
+    def epilogue(self, q, out, rho_q, cell_xyz, interior, slab,
+                 wall_params, emit_movers: bool):
+        """Fused symplectic Euler + gravity + collide on the query slots,
+        optional mover flags and continuity density.
+
+        ``cell_xyz``: the slot's own (x cell, plane row, plane z) as int
+        arrays; ``interior`` marks owning lanes; ``slab`` = (binning
+        x-origin, slab end).  Returns the list of output channels: 6
+        pos/vel, then the 0/1 mover flag and the new density if requested.
+        """
+        p = self.p
+        dim = self.dim
+        wp = wall_params or p
+        valid = q[0] < pm.SENTINEL * 0.5
+        grav = p.gravity + (0.0,) * (3 - dim)
+        vnew = [q[3 + c] + (out[c] + grav[c]) * p.dt for c in range(dim)]
+        pnew = [q[c] + vnew[c] * p.dt for c in range(dim)]
+        pnew, vnew = physics.collide_axes(pnew, vnew, wp)
+        zero = jnp.zeros_like(q[0])
+        p3 = list(pnew) + [zero] * (3 - dim)
+        v3 = list(vnew) + [zero] * (3 - dim)
+        res = ([jnp.where(valid, x, pm.SENTINEL) for x in p3]
+               + [jnp.where(valid, v, 0.0) for v in v3])
+        if not emit_movers:
+            return res
+        # cell-leaving detection while the new position is in registers
+        res_xyz = p.grid_res
+        cax = p.cells_axis
+        x0, x1 = slab
+
+        def cellc(c, n, base):
+            f = jnp.floor((pnew[c] - base) * (1.0 / cax[c]))
+            return jnp.clip(f.astype(jnp.int32), 0, n - 1)
+
+        gx, row, z = cell_xyz
+        moved = cellc(0, res_xyz[0], x0) != gx
+        moved |= cellc(1, res_xyz[1], p.bounds_min[1]) + ROWS_PER_BLOCK != row
+        if dim == 3:
+            moved |= cellc(2, res_xyz[2], p.bounds_min[2]) + 1 != z
+        # clipping hides slab exits: a particle leaving through the slab's
+        # x faces keeps its clipped edge cell, so flag it explicitly
+        moved |= (pnew[0] < x0) | (pnew[0] >= x1)
+        moved &= valid & interior
+        res.append(moved.astype(jnp.float32))
+        if self.continuity:
+            if self.sum_form:
+                rho_new = self.c_poly6 * out[3]
+            elif self.relax_form:
+                rho_new = self.one_m_l * (rho_q + self.drho_scale * out[3])
+            else:
+                rho_new = rho_q + self.drho_scale * out[3]
+            res.append(jnp.where(valid, rho_new, 0.0))
+        return res
 
 
-def _stencil(dim: int, hw: int = 1):
-    """z slab choices, y window slices, x lane-roll offsets.
-
-    ``hw`` is the x-stencil halfwidth: 1 for cubic cells; ceil(h/cell_x)
-    under anisotropic cells (SimParams.cell_aniso) — extra x offsets are
-    query lane-rolls that SHARE each trip's candidate reads, which is what
-    makes the fine-x layout pay (BASELINE.md round-3 padding attack)."""
-    dzs = (0, 1, 2) if dim == 3 else (1,)
-    return dzs, (0, 1, 2), tuple(range(-hw, hw + 1))
+def _default_slab(params: SimParams, slab):
+    """(binning x-origin, slab end); the default — the global domain
+    padded by one cell — never flags a slab exit on a single device."""
+    if slab is None:
+        return jnp.asarray([params.bounds_min[0],
+                            params.bounds_max[0] + params.cell], jnp.float32)
+    return jnp.asarray(slab, jnp.float32)
 
 
-# --------------------------------------------------------------------------
-# density kernel
-# --------------------------------------------------------------------------
-
-def _density_kernel(occ_q_ref, occ_s_ref, *args, params: SimParams,
-                    geom: PlaneGeom):
-    dzs, dys, dxs = _stencil(params.dim)
-    n_in = 3 * len(dzs)
-    refs, (rho_ref, win) = args[:n_in], args[n_in:]
-    refs = [refs[3 * i:3 * i + 3] for i in range(len(dzs))]
-
-    if params.dim == 3:
-        bz, bx, by = pl.program_id(0), pl.program_id(1), pl.program_id(2)
-    else:
-        bz, bx, by = 0, pl.program_id(0), pl.program_id(1)
-    bidx = (bz * geom.n_bx + bx) * geom.n_by + by
-    occ_q = occ_q_ref[bidx]
-
-    h2 = jnp.float32(params.h * params.h)
-    c_poly6 = jnp.float32(kernels.poly6_coef(params.h, params.dim) *
-                          params.particle_mass)
-
-    @pl.when(occ_q > 0)
-    def _():
-        _build_windows(win, refs, pm.N_POS_FIELDS, dzs)
-        ctr = len(dzs) // 2
-
-        def q_loop(k1, _):
-            # Roll the QUERY by +dx and accumulate each x-offset's pairs in
-            # the candidate frame (the force kernel's scheme): 6 lane-rolls
-            # per rank + 2 roll-backs, vs the 9 full pre-rolled window
-            # variants this replaced — an A/B decomposition (scripts/
-            # ab_align.py) measured that per-block fixed cost (window build
-            # + pre-rolls, no pair loop) at 2.7 ms of the 7.1 ms sweep
-            # @1.47M.  Bonus: candidate reads drop 27 -> 9 per trip (shared
-            # across the 3 dx evals) and the accumulator chain splits 3 ways.
-            q0 = [win[ctr, j, k1, 8:16, :] for j in range(pm.N_POS_FIELDS)]
-            qv = {0: q0,
-                  -1: [pltpu.roll(t, LANES - 1, axis=1) for t in q0],
-                  1: [pltpu.roll(t, 1, axis=1) for t in q0]}
-            z = jnp.zeros((ROWS_PER_BLOCK, LANES), jnp.float32)
-
-            def pair(qf, cand, a):
-                ddx = qf[0] - cand[0]
-                ddy = qf[1] - cand[1]
-                r2 = ddx * ddx + ddy * ddy
-                if params.dim == 3:
-                    ddz = qf[2] - cand[2]
-                    r2 = r2 + ddz * ddz
-                d = jnp.maximum(h2 - r2, 0.0)
-                return a + d * d * d
-
-            acc = {dx: z for dx in (-1, 0, 1)}
-            for zi, dz in enumerate(dzs):
-                occ_c = occ_s_ref[bidx * 3 + dz]
-
-                def c_loop(k2, accs):
-                    am, a0, ap = accs
-                    for dy in (0, 1, 2):
-                        cand = [win[zi, j, k2, dy + 7:dy + 15, :]
-                                for j in range(pm.N_POS_FIELDS)]
-                        am = pair(qv[-1], cand, am)
-                        a0 = pair(qv[0], cand, a0)
-                        ap = pair(qv[1], cand, ap)
-                    return am, a0, ap
-
-                accs = jax.lax.fori_loop(0, occ_c, c_loop,
-                                         (acc[-1], acc[0], acc[1]))
-                acc = {-1: accs[0], 0: accs[1], 1: accs[2]}
-
-            # acc[dx] at lane l belongs to query lane l - dx; roll back
-            out = acc[0]
-            for dx in (-1, 1):
-                out = out + pltpu.roll(acc[dx], (-dx) % LANES, axis=1)
-            rho_ref[k1, 0, 0, :, :] = c_poly6 * out
-            return 0
-
-        jax.lax.fori_loop(0, occ_q, q_loop, 0)
-
-    # ranks never touched above still need defined output
-    def fill_loop(k1, _):
-        @pl.when(k1 >= occ_q)
-        def _():
-            rho_ref[k1, 0, 0, :, :] = jnp.zeros((ROWS_PER_BLOCK, LANES),
-                                                 jnp.float32)
-        return 0
-    jax.lax.fori_loop(0, geom.k, fill_loop, 0)
-
-
-# --------------------------------------------------------------------------
-# force kernel
-# --------------------------------------------------------------------------
-
-def _force_kernel(occ_q_ref, occ_s_ref, *args, params: SimParams,
-                  geom: PlaneGeom, fuse_integrate: bool = False,
-                  wall_params: SimParams = None, emit_movers: bool = False,
-                  continuity: bool = False):
-    """Fused pressure-gradient + viscosity sweep.
-
-    Inputs arrive as TWO window groups — the 6-channel pos/vel plane stack
-    and the 1-channel density planes (kept separate so the step never
-    materializes a concatenated 7-channel stack in HBM).  Window channel
-    order after the fused EOS pass:
-      0:x 1:y 2:z 3:vx 4:vy 5:vz 6:m_spiky*p/rho^2 7:m_visc_sqrt/rho
-    Output: (3, K, 1, 8, 128) acceleration block (gravity added outside),
-    or with ``fuse_integrate`` the (6, ...) post-step pos/vel block:
-    symplectic Euler + gravity + wall/obstacle collide run in-kernel on the
-    query tiles (the incremental path, ops/inc.py — accelerations then never
-    leave the planes).
-
-    With ``emit_movers`` (requires fuse_integrate) the epilogue additionally
-    detects slots whose post-step position left its cell and writes a 0/1
-    flag plane for them; the post-step pos/vel planes are written UNBLANKED
-    (mover values stay in place), so ops/inc.py can extract the movers
-    straight out of the new planes with compact_flagged and the consolidate
-    pass excludes them via the flag.  (v2 compacted movers in-kernel through
-    a flat-1024 routing network per rank tile — measured ~11 ms @1.47M,
-    BASELINE.md — v3 replaces that with one extra output channel.)
-
-    With ``continuity`` (requires fuse_integrate + emit_movers) the
-    density input group carries the CARRIED rho of the incremental path
-    (ops/inc.py continuity tier) instead of a fresh summation sweep — the
-    whole density sweep drops out of the step — and the pair loop emits
-    next step's density plane in one of two forms (SimParams.cont_form):
-
-      * "sum" (default, round 5): emit the COMPLETED summation
-        R(x) + dt*dR/dt — the exact poly6 summation advanced by its own
-        concurrent continuity rate, fused into one accumulator
-        (sum d4*(d2 - 6 dt (vi-vj).dd)).  Mode-identical to the rate
-        form (same lag eigenstructure, same deferred correction) but
-        re-anchored at an exact summation every step: zero drift, no
-        resum cadence, true self-density for isolated particles.
-        Marginal pair cost ~2 ops: d2, d4 and dot are already computed
-        for the correction term.
-      * "rate" (round 4): accumulate drho/dt = sum_j m (v_i-v_j).gradW
-        (poly6 gradient) and emit the explicit-Euler update
-        rho_new = rho + dt*drho/dt; re-synced by a periodic summation
-        sweep (ops/inc.RESUM_EVERY).  Marginal pair cost is ~8 VPU ops
-        (dv, dv.dd, fma) on top of ~26.
-
-    Reference match: SURVEY.md §2 "Density/pressure pass" — the
-    capability is density+EOS.
-    """
-    dzs, dys, dxs = _stencil(params.dim)
+def _n_out(fuse_integrate, emit_movers, continuity):
     if continuity:
         assert fuse_integrate and emit_movers
     if emit_movers:
-        # third scalar-prefetch operand: (2,) f32 [slab binning x-origin,
-        # slab end) — equal to the global x bounds on a single chip, the
-        # device's slab under spatial sharding (parallel/sharded.py)
-        slab_ref, args = args[0], args[1:]
-    n_in = 3 * len(dzs)
-    refs, rest = args[:n_in], args[n_in:]
-    rrefs, rest = rest[:n_in], rest[n_in:]
-    if continuity:
-        acc_ref, rho_ref, flag_ref, win = rest
-    elif emit_movers:
-        acc_ref, flag_ref, win = rest
-    else:
-        acc_ref, win = rest
-    refs = [refs[3 * i:3 * i + 3] for i in range(len(dzs))]
-    rrefs = [rrefs[3 * i:3 * i + 3] for i in range(len(dzs))]
+        assert fuse_integrate
+    return (6 if fuse_integrate else 3) + int(emit_movers) + int(continuity)
 
-    if params.dim == 3:
-        bz, bx, by = pl.program_id(0), pl.program_id(1), pl.program_id(2)
+
+def _split_outputs(outs, fuse_integrate, emit_movers, continuity):
+    """(C, K, ...) channel stack -> the public return convention."""
+    main = outs[:6] if fuse_integrate else outs[:3]
+    if continuity:
+        return main, outs[7], outs[6]
+    if emit_movers:
+        return main, outs[6]
+    return main
+
+
+# --------------------------------------------------------------------------
+# plain version: static shifted slices, all K source ranks
+# --------------------------------------------------------------------------
+
+def _region(geom: PlaneGeom):
+    """Static query region: (z slice, y slice, x slice) of the planes."""
+    zq = slice(1, geom.nz + 1) if geom.dim == 3 else slice(0, 1)
+    yq = slice(ROWS_PER_BLOCK, ROWS_PER_BLOCK * (geom.n_by + 1))
+    # one x tile: lanes past the last interior cell + 1 never hold owners
+    x_hi = min(LANES - 1, geom.nx + 1) if geom.n_bx == 1 else LANES - 1
+    return zq, yq, slice(1, x_hi)
+
+
+def _shift(s: slice, d: int) -> slice:
+    return slice(s.start + d, s.stop + d)
+
+
+def _to_full(region, geom: PlaneGeom, fill):
+    """Pad a (..., Zr, n_bx, Yr, Xr) region array back to the plane shape."""
+    zq, yq, xq = _region(geom)
+    lead = [(0, 0)] * (region.ndim - 4)
+    widths = lead + [(zq.start, geom.pz - zq.stop), (0, 0),
+                     (yq.start, geom.py - yq.stop),
+                     (xq.start, LANES - xq.stop)]
+    return jnp.pad(region, widths, constant_values=fill)
+
+
+def _region_cells(geom: PlaneGeom):
+    """(gx, row, z, interior) int/bool arrays over the query region."""
+    zq, yq, xq = _region(geom)
+    shape = (zq.stop - zq.start, geom.n_bx, yq.stop - yq.start,
+             xq.stop - xq.start)
+    z = jax.lax.broadcasted_iota(jnp.int32, shape, 0) + zq.start
+    xo = jax.lax.broadcasted_iota(jnp.int32, shape, 1)
+    row = jax.lax.broadcasted_iota(jnp.int32, shape, 2) + yq.start
+    lane = jax.lax.broadcasted_iota(jnp.int32, shape, 3) + xq.start
+    gx = xo * TILE_X + lane - 1
+    interior = (lane >= 1) & (lane <= TILE_X) & (gx < geom.nx)
+    return gx, row, z, interior
+
+
+def _plain_loop(src, n_acc: int, geom: PlaneGeom, pair, q_shape):
+    """sum over source ranks (fori_loop) and the 3^d stencil (unrolled) of
+    pair(cand, acc); ``src`` (C, K, pz, n_bx, py, 128) candidate channels."""
+    zq, yq, xq = _region(geom)
+
+    def body(k2, acc):
+        sk = jax.lax.dynamic_index_in_dim(src, k2, axis=1, keepdims=False)
+        for dz in _dzs(geom.dim):
+            for dy in (-1, 0, 1):
+                for dx in (-1, 0, 1):
+                    c = sk[:, _shift(zq, dz), :, _shift(yq, dy),
+                           _shift(xq, dx)]
+                    acc = pair(c, acc)
+        return acc
+
+    acc0 = tuple(jnp.zeros(q_shape, jnp.float32) for _ in range(n_acc))
+    return jax.lax.fori_loop(0, geom.k, body, acc0)
+
+
+def _plain_query(planes, geom: PlaneGeom):
+    zq, yq, xq = _region(geom)
+    return planes[..., zq, :, yq, xq]
+
+
+def _density_plain(pos_planes, params: SimParams, geom: PlaneGeom):
+    q = _plain_query(pos_planes, geom)                 # (3, K, Zr, ...)
+    h2 = params.h * params.h
+    (acc,) = _plain_loop(
+        pos_planes, 1, geom,
+        lambda c, a: (_density_pair(q, c[:, None], a[0], h2, params.dim),),
+        q.shape[1:])
+    valid = q[0] < pm.SENTINEL * 0.5
+    c_poly6 = kernels.poly6_coef(params.h, params.dim) * params.particle_mass
+    return _to_full(jnp.where(valid, c_poly6 * acc, 0.0), geom, 0.0)
+
+
+def _accel_plain(field_planes, rho_planes, params, geom, fuse_integrate,
+                 wall_params, emit_movers, slab, continuity):
+    fm = _ForceMath(params, continuity)
+    eos = fold_eos(field_planes, rho_planes, params)
+    src = jnp.concatenate([field_planes, eos], axis=0)       # (8, K, ...)
+    qs = _plain_query(src, geom)
+    rho_q = _plain_query(rho_planes, geom)
+    q = list(qs)
+    if fm.use_delta:
+        q.append(rho_q * fm.kappa_over_mv)
+    acc = _plain_loop(src, fm.n_acc, geom,
+                      lambda c, a: fm.pair(q, list(c[:, None]), a),
+                      qs.shape[1:])
+    out = fm.finish(q, acc)
+    valid = q[0] < pm.SENTINEL * 0.5
+    if not fuse_integrate:
+        res = [jnp.where(valid, o, 0.0) for o in out[:3]]
+        fills = [0.0] * 3
     else:
-        bz, bx, by = 0, pl.program_id(0), pl.program_id(1)
-    bidx = (bz * geom.n_bx + bx) * geom.n_by + by
+        gx, row, z, interior = _region_cells(geom)
+        slab = _default_slab(params, slab)
+        res = fm.epilogue(q, out, rho_q, (gx, row, z), interior,
+                          (slab[0], slab[1]), wall_params, emit_movers)
+        fills = [pm.SENTINEL] * 3 + [0.0] * (len(res) - 3)
+    return jnp.stack([_to_full(r, geom, f) for r, f in zip(res, fills)])
+
+
+# --------------------------------------------------------------------------
+# Triton kernel
+# --------------------------------------------------------------------------
+
+def _block_origin(geom: PlaneGeom, rows: int):
+    """Program ids -> (block index, flat offset of the block in a rank,
+    plane z) for the (nzq, n_bx, nyq) query grid."""
+    iz, ix, iy = pl.program_id(0), pl.program_id(1), pl.program_id(2)
+    nyq = geom.n_by * ROWS_PER_BLOCK // rows
+    z = iz + 1 if geom.dim == 3 else iz
+    bidx = (iz * geom.n_bx + ix) * nyq + iy
+    row0 = ROWS_PER_BLOCK + iy * rows
+    base = ((z * geom.n_bx + ix) * geom.py + row0) * LANES
+    return bidx, base, z, ix, row0
+
+
+def _stencil_offsets(geom: PlaneGeom):
+    zs = geom.n_bx * geom.py * LANES
+    return [[dz * zs + dy * LANES + dx for dy in (-1, 0, 1)
+             for dx in (-1, 0, 1)] for dz in _dzs(geom.dim)]
+
+
+def _density_kernel(occ_q_ref, occ_s_ref, pos_ref, rho_ref, *,
+                    params: SimParams, geom: PlaneGeom, rows: int):
+    blk = rows * LANES
+    bidx, base, _, _, _ = _block_origin(geom, rows)
+    offs = _stencil_offsets(geom)
+    dim = params.dim
+    h2 = params.h * params.h
+    c_poly6 = kernels.poly6_coef(params.h, dim) * params.particle_mass
     occ_q = occ_q_ref[bidx]
 
-    h = jnp.float32(params.h)
-    import math as _math
-    rest = jnp.float32(params.rest_density)
-    m_spiky = jnp.float32(-kernels.spiky_grad_coef(params.h, params.dim)
-                          * params.particle_mass)
-    m_visc_sqrt = jnp.float32(_math.sqrt(
-        kernels.visc_lap_coef(params.h, params.dim)
-        * params.particle_mass * params.viscosity))
-    # continuity: drho = dt * m * sum((vi-vj) . grad W_poly6) with
-    # grad W_poly6 = -6 c (h^2-r^2)^2 d — the POLY6 gradient, not spiky:
-    # summation density is poly6, and d/dt[sum m W(x_ij)] =
-    # sum m grad W . (vi-vj) is a chain-rule IDENTITY only for the same
-    # kernel.  (First build used the spiky gradient — its 1/r blowup for
-    # close pairs mis-estimated drho by ~50% of rho0 within 2 steps on a
-    # jittered lattice; poly6-gradient continuity tracks the summation
-    # field to O(dt^2)/step.)  Negative scale: approaching pairs
-    # (dv.dd < 0) raise the density.
-    drho_scale = jnp.float32(
-        -6.0 * params.dt * kernels.poly6_coef(params.h, params.dim)
-        * params.particle_mass)
-    # "sum" form (SimParams.cont_form): the pair accumulator holds the
-    # exact poly6 summation sum (h^2-r^2)^3 and the emitted density is
-    # R(x) — a fresh summation each step, read by next step's EOS one
-    # step stale, stabilized by the deferred correction exactly like the
-    # rate form.  MEASURED NEGATIVE (round 5): "completing" the emission
-    # to R(x) + dt*dR/dt (one fused op, d4*(d2 - 6 dt dot)) on the
-    # theory that it reproduces the rate form's forward-Euler estimate
-    # made the KE acceptance gate WORSE (0.0658 vs pure R(x)'s 0.0531
-    # @1000 full-CFL steps) — the deferred-correction pressure term
-    # already compensates the one-step lag, so completing the density as
-    # well double-corrects.  Emit R(x) alone.
-    sum_form = continuity and params.cont_form == "sum"
-    rho_sum_scale = jnp.float32(
-        kernels.poly6_coef(params.h, params.dim) * params.particle_mass)
-    # "relax" form (the default): rho' = (1-l)(rho + dt drho) + l R(x),
-    # folded into the single rate accumulator as d4*(dot + kappa_d2*d2):
-    #   (1-l) drho_scale * sum d4*dot + l c_sum * sum d4*d2
-    #     = (1-l) drho_scale * sum d4*(dot + kappa_d2 d2)
-    #   kappa_d2 = l c_sum / ((1-l) drho_scale)
-    # so the density-error mode decays by (1-l) per step (drift bounded,
-    # frozen splash rho relaxes to truth) at ~2 extra ops/pair.
-    relax_form = continuity and params.cont_form == "relax"
-    _l = params.cont_relax if relax_form else 0.0
-    _c_sum = (kernels.poly6_coef(params.h, params.dim)
-              * params.particle_mass)
-    _drho_sc = (-6.0 * params.dt
-                * kernels.poly6_coef(params.h, params.dim)
-                * params.particle_mass)
-    kappa_d2 = jnp.float32(
-        _l * _c_sum / ((1.0 - _l) * _drho_sc) if relax_form and _l < 1.0
-        else 0.0)
-    one_m_l = jnp.float32(1.0 - _l)
-    h2c = jnp.float32(params.h * params.h)
-    # Monaghan alpha-viscosity fold (continuity tier only; see
-    # SimParams.cont_alpha for why the continuity form NEEDS a stabilizer):
-    # the pair term m_spiky * Pi_ij with Pi = alpha c h (-mu)/rho0,
-    # mu = (dv.dd)/(r^2 + 0.01 h^2), active on approaching pairs only.
-    # Momentum-conserving (symmetric, central).
-    c_av = jnp.float32(
-        (-kernels.spiky_grad_coef(params.h, params.dim))
-        * params.particle_mass * params.cont_alpha * params.sound_speed
-        * params.h / params.rest_density)
-    eps_h2 = jnp.float32(0.01 * params.h * params.h)
-    # delta-SPH density diffusion fold (the preferred continuity
-    # stabilizer, SimParams.cont_delta): adds
-    #   drho_i/dt += 12 delta h c m c_poly6 * sum_j d2^2 (1 - rho_i/rho_j)
-    # i.e. in the shared drho accumulator (scaled by drho_scale < 0):
-    #   sr += d2^2 * (dot - kappa * (1 - rho_i/rho_j)),  kappa = 2 delta h c.
-    # 1/rho_j comes free off the viscosity window channel (ch7 =
-    # m_visc_sqrt / rho_j), so the query-side factor kappa*rho_i/m_visc
-    # rides as a 9th rolled query channel and the pair cost is ~2 ops.
-    # The self-pair cancels exactly: qf8*cir = kappa.  Requires
-    # viscosity > 0 (ch7 nonzero) — statically disabled otherwise.
-    use_delta = (continuity and not sum_form and params.cont_delta > 0.0
-                 and params.viscosity > 0.0)
-    kappa = jnp.float32(2.0 * params.cont_delta * params.h
-                        * params.sound_speed)
-    m_visc_f = float(_math.sqrt(
-        kernels.visc_lap_coef(params.h, params.dim)
-        * params.particle_mass * params.viscosity)) or 1.0
-    kappa_over_mv = jnp.float32(
-        2.0 * params.cont_delta * params.h * params.sound_speed / m_visc_f)
-    # deferred-correction pressure fold (SimParams.cont_beta): the pairwise
-    # diagonal of delta-p_i = c^2 dt drho_i/dt, entering the (p/rho^2)-sum
-    # as  psum -= C_CORR * d2^2 * (dv.dd):
-    #   C_CORR = m_spiky * 2 * 6 c_poly6 * m * c^2 * dt / rho0^2
-    # (one m from the force fold, one from drho's mass; 1/rho^2 ~ 1/rho0^2
-    # under weak compressibility).  Sign: approaching pairs (dot < 0) get
-    # extra repulsion — the compression the lagged EOS hasn't seen yet.
-    use_corr = continuity and params.cont_beta > 0.0
-    c_corr = jnp.float32(
-        params.cont_beta
-        * (-kernels.spiky_grad_coef(params.h, params.dim))
-        * params.particle_mass
-        * 12.0 * kernels.poly6_coef(params.h, params.dim)
-        * params.particle_mass * params.stiffness * params.dt
-        / (params.rest_density ** 2))
-    # Clamp the per-pair correction at the 20%-overdensity pressure scale:
-    # the correction is an ACOUSTIC stabilizer (typical magnitude ~ the
-    # pressure of a ~1% density ripple, 20x below this cap), but its raw
-    # form grows with the pair's closing speed and over-kicked isolated
-    # splash particles in violent encounters — a 5000-step soak measured
-    # sustained vmax 13-32 vs the summation tier's 5.6-9.8 before the
-    # clamp.  Outside the linear regime the term has no business being
-    # large; the clamp leaves the stability analysis untouched.
-    corr_cap = jnp.float32(
-        (-kernels.spiky_grad_coef(params.h, params.dim))
-        * params.particle_mass
-        * params.stiffness * 0.2 / params.rest_density)
+    def q_loop(k1, _):
+        q = [pos_ref[j, k1, pl.ds(base, blk)] for j in range(dim)]
+        acc = jnp.zeros((blk,), jnp.float32)
+        for zi, zoffs in enumerate(offs):
+            def c_loop(k2, acc, zoffs=zoffs):
+                for off in zoffs:
+                    c = [pos_ref[j, k2, pl.ds(base + off, blk)]
+                         for j in range(dim)]
+                    acc = _density_pair(q, c, acc, h2, dim)
+                return acc
+            acc = jax.lax.fori_loop(0, occ_s_ref[bidx * len(offs) + zi],
+                                    c_loop, acc)
+        valid = q[0] < pm.SENTINEL * 0.5
+        rho_ref[k1, pl.ds(base, blk)] = jnp.where(valid, c_poly6 * acc, 0.0)
 
-    @pl.when(occ_q > 0)
-    def _():
-        _build_windows(win, refs, 6, dzs)
-        # density windows from the separate 1-channel group -> channel 6
-        # (same single-row neighbor layout as _build_windows)
-        for i in range(len(dzs)):
-            r0, r1, r2 = rrefs[i]
-            win[i, 6, :, ROWS_PER_BLOCK - 1:ROWS_PER_BLOCK, :] = \
-                r0[:, 0, 0, ROWS_PER_BLOCK - 1:ROWS_PER_BLOCK, :]
-            win[i, 6, :, ROWS_PER_BLOCK:2 * ROWS_PER_BLOCK, :] = \
-                r1[:, 0, 0, :, :]
-            win[i, 6, :, 2 * ROWS_PER_BLOCK:2 * ROWS_PER_BLOCK + 1, :] = \
-                r2[:, 0, 0, 0:1, :]
-        # EOS fused at window-build time: channel 6 (rho) becomes the
-        # pressure term m_spiky*p/rho^2, channel 7 the viscosity sqrt-factor
-        # (one pass per window instead of two extra plane channels)
-        for zi in range(len(dzs)):
-            xw = win[zi, 0]
-            rw = win[zi, 6]
-            validw = xw < pm.SENTINEL * 0.5
-            rho_c = jnp.where(validw,
-                              jnp.maximum(rw, 1e-3 * rest), rest)
-            pres = physics.eos_pressure(rho_c, params)
-            win[zi, 6] = m_spiky * pres / (rho_c * rho_c)
-            win[zi, 7] = m_visc_sqrt / rho_c
-        ctr = len(dzs) // 2
+    jax.lax.fori_loop(0, occ_q, q_loop, None)
 
-        def q_loop(k1, _):
-            # Roll the QUERY by +dx and compute each x-offset's pairs in the
-            # candidate frame, rolling the per-dx accumulators back at the
-            # end: 22 lane-rolls per rank instead of 8 fields x every
-            # (dz,k2,dy,dx) candidate tile (~50x fewer rolls).
-            q0 = [win[ctr, j, k1, 8:16, :] for j in range(8)]
-            if use_delta:
-                # 9th query channel: kappa * rho_i / m_visc_sqrt — pairs
-                # with the candidate viscosity channel (m_visc_sqrt/rho_j)
-                # to give the delta-diffusion ratio kappa*rho_i/rho_j
-                q0.append(rrefs[ctr][1][k1, 0, 0, :, :] * kappa_over_mv)
-            qv = {0: q0,
-                  -1: [pltpu.roll(t, LANES - 1, axis=1) for t in q0],
-                  1: [pltpu.roll(t, 1, axis=1) for t in q0]}
-            z = jnp.zeros((ROWS_PER_BLOCK, LANES), jnp.float32)
-            n_acc = 5 if continuity else 4
-            acc = {dx: (z,) * n_acc for dx in (-1, 0, 1)}
+    def fill(k1, _):
+        rho_ref[k1, pl.ds(base, blk)] = jnp.zeros((blk,), jnp.float32)
 
-            def pair(qf, cand, a4):
-                qx, qy, qz_, qvx, qvy, qvz, qp, qir = qf[:8]
-                cx, cy, cz, cvx, cvy, cvz, cp, cir = cand
-                if continuity:
-                    ax, ay, az, sv, sr = a4
-                else:
-                    ax, ay, az, sv = a4
-                ddx = qx - cx
-                ddy = qy - cy
-                r2 = ddx * ddx + ddy * ddy
-                if params.dim == 3:
-                    ddz = qz_ - cz
-                    r2 = r2 + ddz * ddz
-                inv_r = jax.lax.rsqrt(jnp.maximum(r2, 1e-16))
-                r = r2 * inv_r
-                hr = jnp.maximum(h - r, 0.0)
-                # no explicit self/degenerate guard: for the self pair every
-                # coordinate/velocity difference is exactly 0, so both force
-                # terms vanish by multiplication, and the r2 clamp above
-                # keeps coef_p finite (eps-regularized for coincident pairs)
-                # pressure: -m (pa+pb) g(r)/r * d  (constants pre-folded
-                # into the pr2 plane)
-                g = hr * hr * inv_r
-                psum = qp + cp
-                if continuity:
-                    dot = (qvx - cvx) * ddx + (qvy - cvy) * ddy
-                    if params.dim == 3:
-                        dot = dot + (qvz - cvz) * ddz
-                    d2 = jnp.maximum(h2c - r2, 0.0)
-                    d4 = d2 * d2
-                    t_dot = d4 * dot
-                    if use_corr:
-                        psum = psum - jnp.clip(c_corr * t_dot,
-                                               -corr_cap, corr_cap)
-                    if params.cont_alpha > 0.0:
-                        rr = jax.lax.rsqrt(r2 + eps_h2)
-                        u = dot * (rr * rr)
-                        psum = psum - c_av * jnp.minimum(u, 0.0)
-                coef_p = psum * g
-                # viscosity: mu m (vb-va) ira irb lap(r)  (constants folded
-                # into the irho plane as sqrt factors).  The -va term factors
-                # out of the pair loop: accumulate sum(coef_v) in sv and
-                # subtract qv*sv once per rank in the finalize step below
-                # (saves dim subs per pair tile)
-                coef_v = hr * (qir * cir)
-                sv = sv + coef_v
-                ax = ax + coef_p * ddx + coef_v * cvx
-                ay = ay + coef_p * ddy + coef_v * cvy
-                if params.dim == 3:
-                    az = az + coef_p * ddz + coef_v * cvz
-                if continuity:
-                    # "sum": the exact poly6 summation density rides the
-                    # accumulator — d4*d2 = (h^2-r^2)^3, one extra mul
-                    # (d2, d4 shared with the correction term above).
-                    # "rate": the continuity density rate (v_i-v_j).dd
-                    # with the poly6-gradient weight (h^2-r^2)^2 — the
-                    # constant -6 c_poly6 m dt folds into drho_scale
-                    # outside; with use_delta the delta-SPH diffusion
-                    # rides the same accumulator:
-                    # w = dot - kappa*(1 - rho_i/rho_j).
-                    if sum_form:
-                        sr = sr + d4 * d2
-                    elif relax_form:
-                        sr = sr + d4 * (dot + kappa_d2 * d2)
-                    elif use_delta:
-                        sr = sr + d4 * ((dot - kappa) + qf[8] * cir)
-                    else:
-                        sr = sr + t_dot
-                    return ax, ay, az, sv, sr
-                return ax, ay, az, sv
-
-            for zi, dz in enumerate(dzs):
-                occ_c = occ_s_ref[bidx * 3 + dz]
-
-                def c_loop(k2, accs):
-                    am, a0, ap = accs
-                    for dy in (0, 1, 2):
-                        cand = [win[zi, j, k2, dy + 7:dy + 15, :]
-                                for j in range(8)]
-                        am = pair(qv[-1], cand, am)
-                        a0 = pair(qv[0], cand, a0)
-                        ap = pair(qv[1], cand, ap)
-                    return am, a0, ap
-
-                accs = (acc[-1], acc[0], acc[1])
-                accs = jax.lax.fori_loop(0, occ_c, c_loop, accs)
-                acc = {-1: accs[0], 0: accs[1], 1: accs[2]}
-
-            # finalize each dx-accumulator in its own (rolled-query) frame —
-            # the factored viscosity -qv*sum(coef_v) term — then roll back
-            # into the query frame: s computed at lane l belongs to query
-            # lane l - dx.  (2D: the vz channel is all-zero, planes.py)
-            def fin(dx):
-                s = acc[dx]
-                f = [s[c] - qv[dx][3 + c] * s[3] for c in range(3)]
-                if continuity:
-                    f.append(s[4])
-                return f
-
-            n_fin = 4 if continuity else 3
-            out = fin(0)
-            for dx in (-1, 1):
-                fdx = fin(dx)
-                shift = (-dx) % LANES
-                for c in range(n_fin):
-                    out[c] = out[c] + pltpu.roll(fdx[c], shift, axis=1)
-            if not fuse_integrate:
-                acc_ref[0, k1, 0, 0, :, :] = out[0]
-                acc_ref[1, k1, 0, 0, :, :] = out[1]
-                acc_ref[2, k1, 0, 0, :, :] = out[2]
-                return 0
-            # fused symplectic Euler + collide on the query tiles
-            wp = wall_params or params
-            dt = jnp.float32(params.dt)
-            grav = params.gravity + (0.0,) * (3 - params.dim)
-            valid_q = q0[0] < pm.SENTINEL * 0.5
-            vnew = [q0[3 + c] + (out[c] + jnp.float32(grav[c])) * dt
-                    for c in range(params.dim)]
-            pnew = [q0[c] + vnew[c] * dt for c in range(params.dim)]
-            pnew, vnew = physics.collide_axes(pnew, vnew, wp)
-            if not emit_movers:
-                for c in range(params.dim):
-                    acc_ref[c, k1, 0, 0, :, :] = jnp.where(
-                        valid_q, pnew[c], pm.SENTINEL)
-                    acc_ref[3 + c, k1, 0, 0, :, :] = jnp.where(
-                        valid_q, vnew[c], 0.0)
-                if params.dim == 2:
-                    acc_ref[2, k1, 0, 0, :, :] = jnp.where(
-                        valid_q, q0[2], pm.SENTINEL)
-                    acc_ref[5, k1, 0, 0, :, :] = jnp.zeros(
-                        (ROWS_PER_BLOCK, LANES), jnp.float32)
-                return 0
-
-            # --- mover emission (ops/inc.py step): detect slots whose
-            # post-step position left its cell while it is still in VMEM
-            shape = (ROWS_PER_BLOCK, LANES)
-            lane = jax.lax.broadcasted_iota(jnp.int32, shape, 1)
-            row = jax.lax.broadcasted_iota(jnp.int32, shape, 0)
-            gx = bx * pm.TILE_X + lane - 1
-            interior = (lane >= 1) & (lane <= pm.TILE_X) & (gx < geom.nx)
-            cax = params.cells_axis
-            lo = params.bounds_min
-
-            def cellc(c, ncells, base=None):
-                b = jnp.float32(lo[c]) if base is None else base
-                f = jnp.floor((pnew[c] - b) * jnp.float32(1.0 / cax[c]))
-                return jnp.clip(f.astype(jnp.int32), 0, ncells - 1)
-
-            x0 = slab_ref[0]          # slab binning origin (= lo[0] 1-chip)
-            moved = cellc(0, geom.nx, base=x0) != gx
-            moved |= cellc(1, geom.ny) + ROWS_PER_BLOCK \
-                != (by + 1) * ROWS_PER_BLOCK + row
-            if params.dim == 3:
-                moved |= cellc(2, geom.nz) != bz
-            # clipping hides slab exits: a particle leaving through the
-            # slab's x faces keeps its clipped edge cell, so flag it
-            # explicitly (single chip: collide clamps x inside the slab,
-            # so these terms are always False and the flag is unchanged)
-            moved |= (pnew[0] < x0) | (pnew[0] >= slab_ref[1])
-            moved &= valid_q & interior
-            zeros = jnp.zeros(shape, jnp.float32)
-            p3 = list(pnew) + [zeros] * (3 - params.dim)
-            v3 = list(vnew) + [zeros] * (3 - params.dim)
-            for c in range(3):
-                acc_ref[c, k1, 0, 0, :, :] = jnp.where(
-                    valid_q, p3[c], pm.SENTINEL)
-                acc_ref[3 + c, k1, 0, 0, :, :] = jnp.where(
-                    valid_q, v3[c], 0.0)
-            flag_ref[k1, 0, 0, :, :] = moved.astype(jnp.float32)
-            if continuity:
-                if sum_form:
-                    # fresh poly6 summation over this step's (pre-kick)
-                    # positions — next step's EOS reads it one step stale
-                    rho_new = rho_sum_scale * out[3]
-                else:
-                    # explicit-Euler continuity update of the CARRIED
-                    # density: the raw (pre-EOS) query rho comes straight
-                    # off the center input ref — the window's channel 6
-                    # was overwritten by the EOS fold at build time.
-                    # relax form: the (1-l) prefactor distributes over
-                    # both terms (the kappa_d2 fold put the summation
-                    # inside the same accumulator)
-                    rho_q = rrefs[ctr][1][k1, 0, 0, :, :]
-                    if relax_form:
-                        rho_new = one_m_l * (rho_q + drho_scale * out[3])
-                    else:
-                        rho_new = rho_q + drho_scale * out[3]
-                rho_ref[k1, 0, 0, :, :] = jnp.where(valid_q, rho_new, 0.0)
-            return 0
-
-        jax.lax.fori_loop(0, occ_q, q_loop, 0)
-
-    def fill_loop(k1, _):
-        @pl.when(k1 >= occ_q)
-        def _():
-            if fuse_integrate:
-                for c in range(3):
-                    acc_ref[c, k1, 0, 0, :, :] = jnp.full(
-                        (ROWS_PER_BLOCK, LANES), pm.SENTINEL, jnp.float32)
-                acc_ref[3:6, k1, 0, 0, :, :] = jnp.zeros(
-                    (3, ROWS_PER_BLOCK, LANES), jnp.float32)
-                if emit_movers:
-                    flag_ref[k1, 0, 0, :, :] = jnp.zeros(
-                        (ROWS_PER_BLOCK, LANES), jnp.float32)
-                if continuity:
-                    rho_ref[k1, 0, 0, :, :] = jnp.zeros(
-                        (ROWS_PER_BLOCK, LANES), jnp.float32)
-            else:
-                acc_ref[:, k1, 0, 0, :, :] = jnp.zeros(
-                    (3, ROWS_PER_BLOCK, LANES), jnp.float32)
-        return 0
-    jax.lax.fori_loop(0, geom.k, fill_loop, 0)
+    jax.lax.fori_loop(occ_q, geom.k, fill, None)
 
 
-# --------------------------------------------------------------------------
-# pallas_call wrappers
-# --------------------------------------------------------------------------
+def _force_kernel(occ_q_ref, occ_s_ref, slab_ref, f6_ref, eos_ref, rho_ref,
+                  out_ref, *, params: SimParams, geom: PlaneGeom, rows: int,
+                  fuse_integrate: bool, emit_movers: bool, continuity: bool,
+                  wall_params: SimParams):
+    blk = rows * LANES
+    bidx, base, z, ix, row0 = _block_origin(geom, rows)
+    offs = _stencil_offsets(geom)
+    fm = _ForceMath(params, continuity)
+    occ_q = occ_q_ref[bidx]
 
-def _grid_and_specs(geom: PlaneGeom, n_fields: int):
-    """Build the (grid, in_specs) for the 3x3 y-block/z-plane stencil copies.
+    def channels(k, off):
+        sl = pl.ds(base + off, blk)
+        return ([f6_ref[j, k, sl] for j in range(6)]
+                + [eos_ref[j, k, sl] for j in range(2)])
 
-    Per (dz): the center y-block arrives as a full (8, 128) block; the two
-    y-neighbors as SINGLE-ROW blocks (only the adjacent edge row is ever
-    read — see _build_windows; this cuts the pipeline's stencil fetch
-    redundancy from 9x to 3.75x, worth ~4.5 ms/step @1.47M).
-
-    (An indirect 1D grid over an actives-first block list — skipping the
-    empty tail's window copies via repeated-index elision — was measured
-    ~2 ms SLOWER @1M: the sweeps are compute-bound, so the elided DMA was
-    already hidden, and the scalar-prefetch index-map reads add per-step
-    overhead.  Keep the dense static grid.)
-    """
-    dzs, _, _ = _stencil(geom.dim)
-    blk = (n_fields, geom.k, 1, 1, ROWS_PER_BLOCK, LANES)
-    if geom.dim == 3:
-        grid = (geom.nz, geom.n_bx, geom.n_by)
-
-        def mk(dz, j):
-            return pl.BlockSpec(
-                # grid bz in [0,nz) -> z plane bz+dz (dz in {0,1,2} == z-1..z+1
-                # around interior plane bz+1); y block by+j in [0, n_by+2)
-                # (*_ swallows the scalar-prefetch refs appended by the spec)
-                blk,
-                lambda bz, bx, by, *_, dz=dz, j=j:
-                    (0, 0, bz + dz, bx, by + j, 0),
-                memory_space=pltpu.VMEM)
-
-        in_specs = [mk(dz, j) for dz in (0, 1, 2) for j in (0, 1, 2)]
+    if fuse_integrate:
+        lane_id = jax.lax.broadcasted_iota(jnp.int32, (blk,), 0)
+        lane = lane_id % LANES
+        gx = ix * TILE_X + lane - 1
+        interior = (lane >= 1) & (lane <= TILE_X) & (gx < geom.nx)
+        cell_xyz = (gx, row0 + lane_id // LANES, z)
+        slab = (slab_ref[0], slab_ref[1])
+        fills = [pm.SENTINEL] * 3 + [0.0] * (out_ref.shape[0] - 3)
     else:
-        grid = (geom.n_bx, geom.n_by)
+        fills = [0.0] * 3
 
-        def mk(j):
-            return pl.BlockSpec(
-                blk,
-                lambda bx, by, *_, j=j: (0, 0, 0, bx, by + j, 0),
-                memory_space=pltpu.VMEM)
+    def q_loop(k1, _):
+        q = channels(k1, 0)
+        rho_q = rho_ref[k1, pl.ds(base, blk)]
+        if fm.use_delta:
+            q.append(rho_q * fm.kappa_over_mv)
+        acc = tuple(jnp.zeros((blk,), jnp.float32)
+                    for _ in range(fm.n_acc))
+        for zi, zoffs in enumerate(offs):
+            def c_loop(k2, acc, zoffs=zoffs):
+                for off in zoffs:
+                    acc = fm.pair(q, channels(k2, off), acc)
+                return acc
+            acc = jax.lax.fori_loop(0, occ_s_ref[bidx * len(offs) + zi],
+                                    c_loop, acc)
+        out = fm.finish(q, acc)
+        if fuse_integrate:
+            res = fm.epilogue(q, out, rho_q, cell_xyz, interior, slab,
+                              wall_params, emit_movers)
+        else:
+            valid = q[0] < pm.SENTINEL * 0.5
+            res = [jnp.where(valid, o, 0.0) for o in out[:3]]
+        for c, v in enumerate(res):
+            out_ref[c, k1, pl.ds(base, blk)] = v
 
-        in_specs = [mk(j) for j in (0, 1, 2)]
-    return grid, in_specs
+    jax.lax.fori_loop(0, occ_q, q_loop, None)
+
+    def fill(k1, _):
+        for c, f in enumerate(fills):
+            out_ref[c, k1, pl.ds(base, blk)] = jnp.full((blk,), f,
+                                                        jnp.float32)
+
+    jax.lax.fori_loop(occ_q, geom.k, fill, None)
 
 
-def _out_index(geom: PlaneGeom, lead: int):
-    if geom.dim == 3:
-        return lambda bz, bx, by, *_: (0,) * lead + (0, bz + 1, bx, by + 1, 0)
-    return lambda bx, by, *_: (0,) * lead + (0, 0, bx, by + 1, 0)
-
-
-def density_planes(pos_planes, occ_q, occ_s, params: SimParams,
-                   geom: PlaneGeom):
-    """(3, K, pz, py, 128) position planes -> (K, pz, py, 128) density."""
-    n_dz = 3 if geom.dim == 3 else 1
-    grid, in_specs = _grid_and_specs(geom, pm.N_POS_FIELDS)
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=grid,
-        in_specs=in_specs,
-        out_specs=pl.BlockSpec(
-            (geom.k, 1, 1, ROWS_PER_BLOCK, LANES), _out_index(geom, 0),
-            memory_space=pltpu.VMEM),
-        scratch_shapes=[
-            pltpu.VMEM((n_dz, pm.N_POS_FIELDS, geom.k,
-                        3 * ROWS_PER_BLOCK, LANES), jnp.float32),
-        ],
-    )
-    kernel = functools.partial(_density_kernel, params=params, geom=geom)
-    n_copies = len(in_specs)
+def _triton_call(kernel, out_shape, geom: PlaneGeom, rows: int,
+                 interpret: bool, num_warps: int, num_stages: int, name: str):
+    nzq = geom.nz if geom.dim == 3 else 1
+    nyq = geom.n_by * ROWS_PER_BLOCK // rows
     return pl.pallas_call(
         kernel,
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct(
-            (geom.k, geom.pz, geom.n_bx, geom.py, LANES), jnp.float32),
-        interpret=_interpret(),
-    )(occ_q.reshape(-1), occ_s.reshape(-1), *([pos_planes] * n_copies))
+        out_shape=out_shape,
+        grid=(nzq, geom.n_bx, nyq),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps,
+                                             num_stages=num_stages),
+        interpret=interpret,
+        name=name,
+    )
 
 
-def accel_planes(field_planes, rho_planes, occ_q, occ_s,
-                 params: SimParams, geom: PlaneGeom,
-                 fuse_integrate: bool = False,
-                 wall_params: SimParams = None,
-                 emit_movers: bool = False, slab=None,
-                 continuity: bool = False):
-    """(6, K, pz, n_bx, py, 128) pos/vel planes + (K, pz, n_bx, py, 128)
-    density planes -> (3, ...) acceleration (pressure + viscosity; gravity
-    NOT included).  The EOS runs fused inside the kernel.
+def _flat(a, lead: int):
+    return a.reshape(a.shape[:lead] + (-1,))
 
-    With ``fuse_integrate``: -> (6, ...) post-integration pos/vel planes
-    (gravity, symplectic Euler and collide all in-kernel); ghost blocks are
-    left unwritten — the incremental path masks them by interior region.
 
-    With ``emit_movers`` (requires fuse_integrate):
-    -> (new6, flagp) where new6 holds the UNBLANKED post-step pos/vel planes
-    and flagp (K, pz, n_bx, py, 128) is 1.0 on interior slots whose particle
-    left its cell this step (its ghost blocks, like new6's, are unwritten
-    garbage — ops/inc.py masks by interior region).  ``slab`` (2,) f32
-    [binning x-origin, slab end) marks particles leaving the device's x
-    slab as movers under spatial sharding; default is the global domain
-    padded by one cell, which never triggers on a single chip (collide
-    clamps x inside the walls).
+def _density_triton(pos_planes, params, geom, *, rows=None, interpret=False,
+                    num_warps=None, num_stages=None):
+    rows = rows or DENSITY_LAUNCH[0]
+    occ_q, occ_s = pm.occupancy_bounds(pos_planes, params, geom, rows)
+    kernel = functools.partial(_density_kernel, params=params, geom=geom,
+                               rows=rows)
+    shape = (geom.k, geom.pz, geom.n_bx, geom.py, LANES)
+    call = _triton_call(
+        kernel, jax.ShapeDtypeStruct((geom.k, geom.cells), jnp.float32),
+        geom, rows, interpret, num_warps or DENSITY_LAUNCH[1],
+        num_stages or DENSITY_LAUNCH[2], "sph_density")
+    out = call(occ_q.reshape(-1), occ_s.reshape(-1), _flat(pos_planes, 2))
+    return out.reshape(shape)
+
+
+def _accel_triton(field_planes, rho_planes, params, geom, fuse_integrate,
+                  wall_params, emit_movers, slab, continuity, *, rows=None,
+                  interpret=False, num_warps=None, num_stages=None):
+    rows = rows or FORCE_LAUNCH[0]
+    occ_q, occ_s = pm.occupancy_bounds(field_planes, params, geom, rows)
+    eos = fold_eos(field_planes, rho_planes, params)
+    n_out = _n_out(fuse_integrate, emit_movers, continuity)
+    kernel = functools.partial(
+        _force_kernel, params=params, geom=geom, rows=rows,
+        fuse_integrate=fuse_integrate, emit_movers=emit_movers,
+        continuity=continuity, wall_params=wall_params)
+    call = _triton_call(
+        kernel,
+        jax.ShapeDtypeStruct((n_out, geom.k, geom.cells), jnp.float32),
+        geom, rows, interpret, num_warps or FORCE_LAUNCH[1],
+        num_stages or FORCE_LAUNCH[2], "sph_force")
+    out = call(occ_q.reshape(-1), occ_s.reshape(-1),
+               _default_slab(params, slab), _flat(field_planes, 2),
+               _flat(eos, 2), _flat(rho_planes, 1))
+    return out.reshape((n_out,) + rho_planes.shape)
+
+
+# --------------------------------------------------------------------------
+# public sweeps
+# --------------------------------------------------------------------------
+
+def density_planes(pos_planes, params: SimParams, geom: PlaneGeom, *,
+                   impl: str = None, **triton_kw):
+    """(3, K, pz, n_bx, py, 128) position planes -> (K, pz, n_bx, py, 128)
+    summation density (0 on empty slots)."""
+    if (impl or sweep_impl()) == "triton":
+        return _density_triton(pos_planes, params, geom, **triton_kw)
+    return _density_plain(pos_planes, params, geom)
+
+
+def accel_planes(field_planes, rho_planes, params: SimParams,
+                 geom: PlaneGeom, fuse_integrate: bool = False,
+                 wall_params: SimParams = None, emit_movers: bool = False,
+                 slab=None, continuity: bool = False, *, impl: str = None,
+                 **triton_kw):
+    """(6, K, pz, n_bx, py, 128) pos/vel planes + (K, ...) density planes
+    -> (3, K, ...) pressure + viscosity acceleration (gravity NOT included).
+    The EOS runs once per step in ``fold_eos``.
+
+    With ``fuse_integrate``: -> (6, K, ...) post-step pos/vel planes
+    (gravity, symplectic Euler and collide fused into the sweep).
+
+    With ``emit_movers`` (requires fuse_integrate): -> (new6, flagp) where
+    flagp is 1.0 on interior slots whose particle left its cell this step.
+    ``slab`` (2,) [binning x-origin, slab end) marks particles leaving the
+    device's x slab as movers under spatial sharding.
 
     With ``continuity`` (requires both): rho_planes is the CARRIED density
-    (not a fresh sweep) and the return is (new6, rho_new, flagp) with
-    rho_new the continuity-updated density plane (see _force_kernel).
+    and the return is (new6, rho_new, flagp).
     """
-    n_dz = 3 if geom.dim == 3 else 1
-    grid, in_specs = _grid_and_specs(geom, 6)
-
-    rho_blk = (geom.k, 1, 1, ROWS_PER_BLOCK, LANES)
-    if geom.dim == 3:
-        def mk_rho(dz, j):
-            return pl.BlockSpec(
-                rho_blk,
-                lambda bz, bx, by, *_, dz=dz, j=j:
-                    (0, bz + dz, bx, by + j, 0),
-                memory_space=pltpu.VMEM)
-
-        rho_specs = [mk_rho(dz, j) for dz in (0, 1, 2) for j in (0, 1, 2)]
+    _n_out(fuse_integrate, emit_movers, continuity)
+    if (impl or sweep_impl()) == "triton":
+        outs = _accel_triton(field_planes, rho_planes, params, geom,
+                             fuse_integrate, wall_params, emit_movers, slab,
+                             continuity, **triton_kw)
     else:
-        def mk_rho(j):
-            return pl.BlockSpec(
-                rho_blk,
-                lambda bx, by, *_, j=j: (0, 0, bx, by + j, 0),
-                memory_space=pltpu.VMEM)
-
-        rho_specs = [mk_rho(j) for j in (0, 1, 2)]
-    n_out = 6 if fuse_integrate else 3
-    main_spec = pl.BlockSpec(
-        (n_out, geom.k, 1, 1, ROWS_PER_BLOCK, LANES), _out_index(geom, 1),
-        memory_space=pltpu.VMEM)
-    main_shape = jax.ShapeDtypeStruct(
-        (n_out, geom.k, geom.pz, geom.n_bx, geom.py, LANES), jnp.float32)
-    extra_scalars = []
-    if emit_movers:
-        assert fuse_integrate
-        if slab is None:
-            slab = jnp.asarray([params.bounds_min[0],
-                                params.bounds_max[0] + params.cell],
-                               jnp.float32)
-        extra_scalars = [jnp.asarray(slab, jnp.float32)]
-        plane1_spec = pl.BlockSpec((geom.k, 1, 1, ROWS_PER_BLOCK, LANES),
-                                   _out_index(geom, 0),
-                                   memory_space=pltpu.VMEM)
-        plane1_shape = jax.ShapeDtypeStruct(
-            (geom.k, geom.pz, geom.n_bx, geom.py, LANES), jnp.float32)
-        if continuity:
-            out_specs = [main_spec, plane1_spec, plane1_spec]
-            out_shape = [main_shape, plane1_shape, plane1_shape]
-        else:
-            out_specs = [main_spec, plane1_spec]
-            out_shape = [main_shape, plane1_shape]
-    else:
-        assert not continuity
-        out_specs, out_shape = main_spec, main_shape
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2 + len(extra_scalars),
-        grid=grid,
-        in_specs=in_specs + rho_specs,
-        out_specs=out_specs,
-        scratch_shapes=[pltpu.VMEM(
-            (n_dz, 8, geom.k, 3 * ROWS_PER_BLOCK, LANES), jnp.float32)],
-    )
-    kernel = functools.partial(_force_kernel, params=params, geom=geom,
-                               fuse_integrate=fuse_integrate,
-                               wall_params=wall_params,
-                               emit_movers=emit_movers,
-                               continuity=continuity)
-    n_copies = len(in_specs)
-    return pl.pallas_call(
-        kernel,
-        grid_spec=grid_spec,
-        out_shape=out_shape,
-        interpret=_interpret(),
-    )(occ_q.reshape(-1), occ_s.reshape(-1), *extra_scalars,
-      *([field_planes] * n_copies), *([rho_planes] * n_copies))
+        outs = _accel_plain(field_planes, rho_planes, params, geom,
+                            fuse_integrate, wall_params, emit_movers, slab,
+                            continuity)
+    return _split_outputs(outs, fuse_integrate, emit_movers, continuity)
 
 
 # --------------------------------------------------------------------------
@@ -818,13 +643,12 @@ def accel_planes(field_planes, rho_planes, occ_q, occ_s,
 def step_pallas(pos, vel, ids, params: SimParams, *,
                 x_origin=None, active=None, exchange=None,
                 wall_params: SimParams = None):
-    """One full SPH step on the Pallas path.
+    """One full SPH step on the rank-plane path.
 
-    bin -> (ghost exchange) -> density sweep -> EOS -> (ghost exchange) ->
-    force sweep -> gather -> integrate.  Returns
-    (pos, vel, rho, pres, ids, overflow) in CELL-SORTED order (the
-    reference's reorder-for-coalescing trick, adopted as canonical order;
-    `ids` carries identity).
+    bin -> (ghost exchange) -> density sweep -> (ghost exchange) -> force
+    sweep -> gather -> integrate.  Returns (pos, vel, rho, pres, ids,
+    overflow) in CELL-SORTED order (the reference's reorder-for-coalescing
+    trick, adopted as canonical order; `ids` carries identity).
 
     Sharded mode (parallel/sharded.py): ``x_origin`` is the device's domain
     offset, ``active`` masks live capacity slots, and ``exchange(stack,
@@ -836,27 +660,16 @@ def step_pallas(pos, vel, ids, params: SimParams, *,
     planes = table.planes
     if exchange is not None:
         planes = exchange(planes, n_pos_fields=pm.N_POS_FIELDS)
-    occ_q, occ_s = pm.occupancy_bounds(planes, params, geom)
     pos_planes = planes[:pm.N_POS_FIELDS]
 
-    rho_p = density_planes(pos_planes, occ_q, occ_s, params, geom)
-    # halo lanes hold edge-truncated densities from the kernel; refresh them
-    # from the owning tile before the force sweep reads them as candidates.
-    # The EOS + kernel-constant folding runs fused INSIDE the force kernel
-    # (window-build time); rho rides as a separate 1-channel input group so
-    # no concatenated 7-channel stack is ever materialized in HBM.
+    rho_p = density_planes(pos_planes, params, geom)
+    # halo lanes hold edge-truncated densities; refresh them from the
+    # owning tile before the force sweep reads them as candidates
     rho_h = pm.halo_x(rho_p)
     if exchange is not None:
-        # refresh rho's cross-device halo lanes (positions/velocities in
-        # `planes` were exchanged before the density sweep; rho's 0-fill at
-        # global edges is sanitized in-kernel)
         rho_h = exchange(rho_h[None], n_pos_fields=0)[0]
-    acc_p = accel_planes(planes, rho_h, occ_q, occ_s, params, geom)
+    acc_p = accel_planes(planes, rho_h, params, geom)
 
-    # per-particle values out of the planes: acc (3) [+ rho, pres
-    # diagnostics] via the inverse routing network (ops/route) — XLA
-    # gathers cost 10-23ns/element here
-    from . import route
     if params.diagnostics:
         valid = pos_planes[0] < pm.SENTINEL * 0.5
         rho_d = jnp.maximum(jnp.where(valid, rho_p, params.rest_density),
@@ -865,9 +678,7 @@ def step_pallas(pos, vel, ids, params: SimParams, *,
         stack = jnp.concatenate([acc_p, rho_d[None], pres_p[None]], axis=0)
     else:
         stack = acc_p
-    out = route.extract_per_particle(stack, table.shifts, table.slot,
-                                     table.starts, geom)
-    out = jnp.where(table.ok[:, None], out, 0.0)
+    out = pm.gather_slots(stack, table.slot, table.ok, 0.0)
     grav = jnp.asarray(params.gravity + (0.0,) * (3 - params.dim),
                        jnp.float32)
     acc = out[:, :3] + grav                 # dropped rows: 0 + grav = grav

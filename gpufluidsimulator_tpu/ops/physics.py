@@ -6,8 +6,9 @@ Reference counterparts: the EOS inside ``computeDensityPressureKernel``, the
 north_star: "symplectic Euler/leapfrog integration, boundary collision
 response", "obstacle boundaries").
 
-TPU-native design: pure jnp element-wise ops — XLA fuses all of this into the
-surrounding kernels; there is no standalone "integrate launch" as in CUDA.
+Design: pure jnp element-wise ops — XLA fuses all of this into the
+surrounding kernels (and the force sweep fuses it into its epilogue); there
+is no standalone "integrate launch" as in CUDA.
 """
 
 from __future__ import annotations

@@ -1,28 +1,25 @@
-"""Rank-planar cell-grid layout for the Pallas neighbor kernels.
+"""Rank-planar cell-grid layout for the neighbour sweeps.
 
 Reference counterpart: the sort + ``reorderDataAndFindCellStartKernel`` data
-staging of the CUDA path (SURVEY.md §2/§3.1) — but laid out for the TPU's
-(8 sublane, 128 lane) vector registers instead of for coalesced warp loads:
+staging of the CUDA path (SURVEY.md §2/§3.1): particles sorted by cell so a
+cell's particles are adjacent, with a fixed capacity of K slots per cell in
+place of the ``cellStart``/``cellEnd`` ranges:
 
-  * Each field (pos x/y/z, vel, p/rho^2, 1/rho) is a **rank plane**: a
-    (K, pz, n_bx, py, 128) f32 array.  plane[k, z, xo, y, xi] = field value of
-    the rank-k particle of cell (z, y, x = xo*126 + xi - 1), or a sentinel
-    when the slot is empty.
-  * x is split into tiles of 126 interior cells + 2 halo lanes; lane 0/127 of
-    each tile mirror the adjacent tile's edge cells via two static slice
-    copies (``halo_x`` — the same exchange pattern the multi-chip path uses
-    with ppermute).  Within a tile, neighbor-cell access in x is a lane roll,
-    in y a sublane slice, in z a plane slice.  No gathers anywhere.
-  * Ghost cells: 1 plane in z, 8 rows in y (block-aligned), lane 0 of the
-    first tile / trailing lanes of the last, so stencil reads never branch.
-  * Per-block **occupancy bounds** let the kernels skip empty ranks: mean
-    cell occupancy is ~2.2 at cell size h, so bounding the k-loops by the
-    local max occupancy removes most of the fixed-capacity padding work.
+  * Each field (pos x/y/z, vel) is a **rank plane**: a (K, pz, n_bx, py, 128)
+    f32 array.  plane[k, z, xo, y, xi] = field value of the rank-k particle
+    of cell (z, y, x = xo*126 + xi - 1), or a sentinel when the slot is
+    empty.
+  * x is split into tiles of 126 interior cells + 2 halo lanes; lane 0/127
+    of each tile mirror the adjacent tile's edge cells via two static slice
+    copies (``halo_x`` — the same exchange pattern the multi-device path
+    uses with ppermute).  A neighbour cell is then a fixed offset in the
+    flattened plane: +-1 in x, +-128 in y, +-n_bx*py*128 in z.
+  * Ghost cells: 1 plane in z, an 8-row band in y, lane 0 of the first tile
+    and the trailing lanes of the last, so stencil reads of interior cells
+    never leave the array and need no masks.
 
 The particle state is kept **cell-sorted** across steps (the reference's
 reorder trick adopted as the canonical order); identity travels in ``ids``.
-This costs one int32 scatter per rebuild — TPU scatters run ~6ms/1M updates
-while gathers are ~40x cheaper, so everything else is formulated as gathers.
 """
 
 from __future__ import annotations
@@ -38,7 +35,7 @@ from ..models.params import SimParams
 SENTINEL = 1.0e6
 LANES = 128
 TILE_X = LANES - 2          # interior cells per x tile
-ROWS_PER_BLOCK = 8          # query block = 8 y-rows x 128 x-lanes
+ROWS_PER_BLOCK = 8          # y ghost band; interior rows come in blocks
 
 
 class PlaneGeom(NamedTuple):
@@ -60,11 +57,8 @@ def geometry(params: SimParams) -> PlaneGeom:
         raise ValueError(
             "the rank-plane (pallas) tier needs every binning cell >= h "
             "(x-stencil halfwidth 1); anisotropic finer-x cells are "
-            "supported by the gridded tier only.  Measured negative "
-            "(BASELINE.md round 3): the alias-free occupancy of exact "
-            "lattice-multiple cells does not survive evolved flow — shear "
-            "re-aliases the windows (max occ 4 -> 13 by step 3000 at 1M), "
-            "so the sweep-work model flips to 2-2.7x WORSE than cubic h.")
+            "supported by the gridded tier only (docs/ARCHITECTURE.md: "
+            "their alias-free occupancy does not survive evolved flow).")
     res = params.grid_res
     nx = res[0]
     ny = res[1]
@@ -72,7 +66,6 @@ def geometry(params: SimParams) -> PlaneGeom:
     n_bx = -(-nx // TILE_X)
     n_by = -(-(ny + 2) // ROWS_PER_BLOCK)        # interior + 1-cell halo
     py = (1 + n_by + 1) * ROWS_PER_BLOCK         # one ghost block each side
-    py = -(-py // 64) * 64   # routing tiles span 64 y-rows (ops/route.py)
     pz = nz + 2 if params.dim == 3 else 1
     return PlaneGeom(dim=params.dim, k=params.cell_capacity,
                      nx=nx, ny=ny, nz=nz, n_bx=n_bx, py=py, pz=pz,
@@ -83,11 +76,11 @@ def snap_cell(params: SimParams, max_stretch: float = 1.06,
               min_gain: float = 0.85) -> SimParams:
     """Pick a binning cell (>= h) that avoids pathological slot-space padding.
 
-    The plane layout quantizes hard: x in 126-lane tiles, y in 64-row routing
-    tiles, z per plane.  A grid whose x-extent lands *just* past a tile
-    boundary allocates a whole extra x tile that is ~95% padding (measured:
-    grid 132^3 at N=2.14M costs 2.27x the slot space and 2.7x the step time
-    of the 1.47M grid below the boundary).  Since the binning cell only has
+    The plane layout quantizes hard: x in 126-lane tiles, y in 8-row blocks,
+    z per plane.  A grid whose x-extent lands *just* past a tile boundary
+    allocates a whole extra x tile that is ~95% padding (grid 132^3 costs
+    2.27x the slot space of the grid below the boundary).  Since the
+    binning cell only has
     to satisfy ``cell >= h`` for the 3^d stencil to cover the interaction
     radius, stretching it slightly can fold the grid back under the boundary.
 
@@ -125,21 +118,6 @@ def lattice_dx(params: SimParams) -> float:
     """Recover the scene's lattice spacing from the particle mass
     (scenes._derive sets mass = rho0 * dx^dim)."""
     return (params.particle_mass / params.rest_density) ** (1.0 / params.dim)
-
-
-def aniso_cells(params: SimParams, fine: int = 1,
-                coarse: int = 2) -> SimParams:
-    """Anisotropic binning cells (fine*dx on x, coarse*dx on y/z) — the
-    round-3 padding attack (see SimParams.cell_aniso).  Exact integer
-    multiples of the lattice spacing keep bulk occupancy concentrated at
-    fine*coarse^(d-1) instead of aliasing over 1..(2*coarse)^... ; the
-    x stencil widens to ceil(h / (fine*dx)) lane-rolls.  No-op if the
-    coarse cell would fall below h (custom h/mass combos)."""
-    dx = lattice_dx(params)
-    if coarse * dx < params.h * (1.0 - 1e-6):
-        return params
-    cells = (fine * dx,) + (coarse * dx,) * (params.dim - 1)
-    return params.replace(cell_aniso=cells, cell_size=0.0)
 
 
 def cell_linear_parts(pos, params: SimParams, geom: PlaneGeom,
@@ -181,42 +159,20 @@ def halo_x(arr):
     return arr
 
 
-def edge_rows(arr, geom: PlaneGeom):
-    """Compact per-block window-halo rows: (..., n_bx, py, 128) ->
-    (..., n_bx, n_by, 2, 128) where [..., by, 0, :] is the y row just below
-    interior block by (global row (by+1)*8 - 1) and [..., by, 1, :] the row
-    just above (row (by+2)*8).
-
-    UNUSED IN PRODUCTION — kept for scripts/ab_edge.py, which records the
-    negative result: feeding the sweep kernels (2, 128) edge blocks from
-    this pre-gather instead of full 8-row neighbor blocks cut the stencil
-    fetch bytes 2.4x and made both sweeps SLOWER (the redundant block DMA
-    overlaps the rank-loop compute; the extra specs + this build are pure
-    loss).  See ops/pallas_sph._build_windows for the full writeup.
-    """
-    nb = geom.n_by
-    lower = arr[..., ROWS_PER_BLOCK - 1::ROWS_PER_BLOCK, :][..., :nb, :]
-    upper = arr[..., ::ROWS_PER_BLOCK, :][..., 2:nb + 2, :]
-    return jnp.stack([lower, upper], axis=-2)
-
-
 class PlaneTable(NamedTuple):
-    """Binned particle data in rank-planar layout + per-block metadata.
+    """Binned particle data in rank-planar layout.
 
-    Particle arrays come back **cell-sorted** (``order`` applied): the caller
-    adopts the sorted order as the new canonical particle order and carries
-    identity in ``ids``.
+    Particle arrays come back **cell-sorted**: the caller adopts the sorted
+    order as the new canonical particle order and carries identity in
+    ``ids``.
     """
     planes: jnp.ndarray       # (F, K, pz, n_bx, py, 128) f32 (see FIELD_*)
     slot: jnp.ndarray         # (N,) int32 flat slot k*cells + cell of the
                               #   SORTED particle i; k*cells when dropped
     ok: jnp.ndarray           # (N,) bool: sorted particle landed in a slot
-    pos_s: jnp.ndarray        # (N, d) slot-sorted positions
-    vel_s: jnp.ndarray        # (N, d) slot-sorted velocities
-    ids_s: jnp.ndarray        # (N,)   slot-sorted particle identities
-    shifts: jnp.ndarray       # (K, pz, n_bx, py, 128) routing shifts
-                              #   (route.extract inverse; -1 = empty slot)
-    starts: jnp.ndarray       # (n_tiles+1,) int32 particles per routing tile
+    pos_s: jnp.ndarray        # (N, d) cell-sorted positions
+    vel_s: jnp.ndarray        # (N, d) cell-sorted velocities
+    ids_s: jnp.ndarray        # (N,)   cell-sorted particle identities
     overflow: jnp.ndarray     # ()  int32
 
 
@@ -233,9 +189,9 @@ def build_planes(pos, vel, ids, params: SimParams, geom: PlaneGeom,
     ``active`` (N,) bool marks live particles; inactive rows (the sharded
     path's free-capacity slots) sort to the end, bind to no cell, and are
     excluded from the overflow count.  ``with_ids`` adds the particle id as
-    a 7th f32 plane channel (the incremental path carries identity in the
-    planes themselves; empty slots are identified by the x-channel sentinel,
-    never by id).
+    a 7th f32 plane channel (-1 on empty slots; the incremental path
+    carries identity in the planes themselves, while empty slots are
+    identified by the x-channel sentinel).
     """
     n = pos.shape[0]
     k = geom.k
@@ -244,172 +200,79 @@ def build_planes(pos, vel, ids, params: SimParams, geom: PlaneGeom,
     cid = cell_linear_parts(pos, params, geom, x_origin)
     if active is not None:
         cid = jnp.where(active, cid, cells)     # one-past-the-end "cell"
-    # Sort #1 by cell id — ONE multi-operand sort carries every field along
-    # with the key.  The "thin" alternative (sort only (key, index), then
-    # apply the composed permutation with 1D gathers) was measured SLOWER:
-    # 7 gathers alone cost ~8.1 ms @1.2M (~10-23 ns/element — XLA 1D gather
-    # on this chip is not bandwidth-bound), more than the entire payload
-    # carry cost of both sorts (scripts/bench_binning2.py).  Unstable:
-    # rank order within a cell is physically arbitrary (any particle may take
-    # any slot), and the TPU sort network is still deterministic.
+    # one multi-operand sort by cell id carries every field along with the
+    # key.  Unstable: rank order within a cell is physically arbitrary.
     dim = params.dim
     operands = (cid,) + tuple(pos[:, j] for j in range(dim)) \
         + tuple(vel[:, j] for j in range(dim)) + (ids,)
     out = jax.lax.sort(operands, num_keys=1, is_stable=False)
     cid_sorted = out[0]
     # rank within cell: position minus the index where this cell's run began
-    # (an O(N) cummax instead of searchsorted: binary search is 20 dependent
-    # gathers per particle on TPU, the scan is one pass)
     idx = jnp.arange(n, dtype=jnp.int32)
     run_start = jnp.concatenate([
         jnp.zeros((1,), jnp.int32),
         jnp.where(cid_sorted[1:] != cid_sorted[:-1], idx[1:], 0)])
-    # cummax, not associative_scan(maximum): XLA's cumulative-max lowering is
-    # ~18x faster on TPU than the generic Blelloch tree (0.09 vs 1.67 ms @1.2M,
-    # scripts/bench_binning.py) — the generic scan's interleaved slices defeat
-    # the vector units.
     rank = idx - jax.lax.cummax(run_start)
     in_domain = cid_sorted < cells
-    ok1 = (rank < k) & in_domain
-    overflow = jnp.sum(~ok1 & in_domain).astype(jnp.int32)
-    slot1 = jnp.where(ok1, rank * cells + cid_sorted, k * cells)
+    ok = (rank < k) & in_domain
+    overflow = jnp.sum(~ok & in_domain).astype(jnp.int32)
+    slot = jnp.where(ok, rank * cells + cid_sorted, k * cells)
 
-    # Sort #2 by the rank-major SLOT itself: destination addresses become
-    # strictly increasing along the particle order, which makes placement a
-    # monotone expansion — routed by ops/route.place in pure VPU work
-    # instead of element-at-a-time scatters (~5.7ns/update on this chip).
-    # Unstable: slot keys are unique except dropped/inactive (all k*cells),
-    # whose relative order is never observed (ok == False masks them).
-    out2 = jax.lax.sort((slot1,) + out[1:], num_keys=1, is_stable=False)
-    slot = out2[0]
-    pos_cols = out2[1:1 + dim]
-    vel_cols = out2[1 + dim:1 + 2 * dim]
-    ids_s = out2[-1]
-    pos_s = jnp.stack(pos_cols, axis=-1)
-    vel_s = jnp.stack(vel_cols, axis=-1)
-    ok = slot < k * cells
-
-    from . import route
-    rows = route.pad_rows(n)
-    pad_len = rows * LANES - n
-
-    def pad2d(a, fill):
-        return jnp.pad(a, (0, pad_len),
-                       constant_values=fill).reshape(rows, LANES)
-
-    fields2d = [pad2d(c, 0.0) for c in pos_cols + vel_cols]
+    pos_cols = list(out[1:1 + dim])
+    vel_cols = list(out[1 + dim:1 + 2 * dim])
+    ids_s = out[-1]
+    zero = jnp.zeros_like(pos_cols[0])
+    # channel values and empty-slot fills; 2D keeps all-zero z channels
+    cols = pos_cols + [zero] * (3 - dim) + vel_cols + [zero] * (3 - dim)
+    fills = [SENTINEL] * dim + [0.0] * (3 - dim) + [0.0] * 3
     if with_ids:
-        fields2d.append(pad2d(ids_s.astype(jnp.float32), 0.0))
-    slot2d = pad2d(slot, k * cells + route.LOCAL)
-    bases = jnp.arange(route.n_tiles(geom) + 1, dtype=jnp.int32) * route.TILE
-    starts = jnp.searchsorted(slot, bases).astype(jnp.int32)
-    stack = route.place(fields2d, slot2d, starts, geom, n_pos=dim)
-
-    nf = 2 * dim
-    if dim == 3:
-        planes = stack[:nf + (1 if with_ids else 0)]
-        shifts = stack[-1]
-    else:
-        zero = jnp.zeros_like(stack[0])[None]
-        parts = [stack[0:2], zero, stack[2:4], zero]
-        if with_ids:
-            parts.append(stack[4:5])
-        planes = jnp.concatenate(parts, axis=0)
-        shifts = stack[-1]
-    planes = halo_x(planes)
-
+        cols.append(ids_s.astype(jnp.float32))
+        fills.append(-1.0)
+    # placement is one scatter: slots are unique, dropped rows fall off
+    # the end (mode="drop")
+    base = jnp.broadcast_to(jnp.asarray(fills, jnp.float32)[:, None],
+                            (len(cols), k * cells))
+    planes = base.at[:, slot].set(jnp.stack(cols), mode="drop")
+    planes = halo_x(planes.reshape(
+        (len(cols), k, geom.pz, geom.n_bx, geom.py, LANES)))
     return PlaneTable(planes=planes, slot=slot, ok=ok,
-                      pos_s=pos_s, vel_s=vel_s, ids_s=ids_s,
-                      shifts=shifts, starts=starts, overflow=overflow)
-
-
-def _occ_rowmax_kernel(x_ref, out_ref, *, k: int):
-    """One (z, x-tile) program: slot-validity count over K ranks + lane max
-    -> per-row max occupancy, broadcast over lanes (the host slices lane 0;
-    a (.., py) output block would need an illegal 1-sublane spec)."""
-    occ = jnp.zeros(x_ref.shape[-2:], jnp.float32)
-    for kk in range(k):
-        occ = occ + (x_ref[kk, 0, 0, :, :] < SENTINEL * 0.5).astype(
-            jnp.float32)
-    rm = jnp.max(occ, axis=-1, keepdims=True)
-    out_ref[0, 0, :, :] = jnp.broadcast_to(rm, occ.shape)
-
-
-def occ_rowmax(planes_x, geom: PlaneGeom, use_kernel=None):
-    """(K, pz, n_bx, py, 128) x-channel -> (pz, n_bx, py) i32 per-row max
-    occupancy.  Pallas one-pass: the XLA formulation (K*cells compare +
-    reduce + lane max) measured ~5x the HBM-traffic floor @1.2M
-    (scripts/bench_occ.py, round 3)."""
-    import jax
-
-    if use_kernel is None:
-        use_kernel = jax.default_backend() == "tpu"
-    if not use_kernel:
-        valid = planes_x < SENTINEL * 0.5
-        occ = jnp.sum(valid, axis=0, dtype=jnp.int32)
-        return jnp.max(occ, axis=-1)
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-    import functools
-
-    out = pl.pallas_call(
-        functools.partial(_occ_rowmax_kernel, k=geom.k),
-        grid=(geom.pz, geom.n_bx),
-        in_specs=[pl.BlockSpec((geom.k, 1, 1, geom.py, LANES),
-                               lambda z, xo: (0, z, xo, 0, 0),
-                               memory_space=pltpu.VMEM)],
-        out_specs=pl.BlockSpec((1, 1, geom.py, LANES),
-                               lambda z, xo: (z, xo, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct(
-            (geom.pz, geom.n_bx, geom.py, LANES), jnp.float32),
-    )(planes_x)
-    return out[..., 0].astype(jnp.int32)
+                      pos_s=jnp.stack(pos_cols, axis=-1),
+                      vel_s=jnp.stack(vel_cols, axis=-1), ids_s=ids_s,
+                      overflow=overflow)
 
 
 def occupancy_bounds(planes, params: SimParams, geom: PlaneGeom,
-                     use_kernel=None):
-    """Per-block occupancy bounds from the (already halo'd) position planes.
-
-    Runs AFTER any inter-device ghost exchange so the bounds account for
-    ghost particles in the halo lanes.  Returns (occ_q, occ_s).
-    """
-    # per-row lane-max occupancy -> (pz, n_bx, py); then block pooling
-    rowmax = occ_rowmax(planes[FIELD_X], geom, use_kernel=use_kernel)
-    nb = geom.n_by
-    blk = rowmax.reshape(geom.pz, geom.n_bx, -1, ROWS_PER_BLOCK)
-    blkmax = jnp.max(blk, axis=-1)                        # (pz, n_bx, nby+2)
-    edge_lo = rowmax[..., ROWS_PER_BLOCK - 1::ROWS_PER_BLOCK]   # row y0-1
-    edge_hi = rowmax[..., ROWS_PER_BLOCK::ROWS_PER_BLOCK]       # row y0+8
-    occ_q = blkmax[..., 1:nb + 1]
-    slab = jnp.maximum(blkmax[..., 1:nb + 1],
-                       jnp.maximum(edge_lo[..., 0:nb], edge_hi[..., 1:nb + 1]))
+                     rows: int = ROWS_PER_BLOCK):
+    """Per query block (``rows`` y rows x 128 lanes of one z plane) bounds
+    on the occupied ranks: occ_q (nzq, n_bx, nyq) for the block itself and
+    occ_s (nzq, n_bx, nyq, n_dz) for its y-widened slab at each z offset,
+    so a rank loop bounded by them visits every occupied slot.  Taken from
+    the (already halo'd) positions."""
+    assert ROWS_PER_BLOCK % rows == 0, rows
+    valid = planes[FIELD_X] < SENTINEL * 0.5
+    rowmax = jnp.max(jnp.sum(valid, axis=0, dtype=jnp.int32), axis=-1)
+    y0 = ROWS_PER_BLOCK
+    nyq = geom.n_by * ROWS_PER_BLOCK // rows
+    y1 = y0 + nyq * rows
+    blk = jnp.max(rowmax[..., y0:y1].reshape(
+        rowmax.shape[:-1] + (nyq, rows)), axis=-1)
+    below = rowmax[..., y0 - 1:y1 - 1:rows]
+    above = rowmax[..., y0 + rows:y1 + rows:rows]
+    slab = jnp.maximum(blk, jnp.maximum(below, above))
     if params.dim == 3:
-        zpad = jnp.zeros_like(slab[:1])
-        occ_s = jnp.stack([
-            jnp.concatenate([zpad, slab[:-1]], axis=0),   # z-1
-            slab,                                          # z
-            jnp.concatenate([slab[1:], zpad], axis=0),     # z+1
-        ], axis=-1)
+        nz = geom.nz
+        occ_q = blk[1:nz + 1]
+        occ_s = jnp.stack([slab[0:nz], slab[1:nz + 1], slab[2:nz + 2]],
+                          axis=-1)
     else:
-        occ_s = jnp.stack([slab * 0, slab, slab * 0], axis=-1)
-    # kernels grid over interior z planes only
-    if params.dim == 3:
-        occ_q = occ_q[1:geom.nz + 1]
-        occ_s = occ_s[1:geom.nz + 1]
+        occ_q, occ_s = blk, slab[..., None]
     return occ_q, occ_s
 
 
 def gather_slots(plane_stack, slot, ok, fill):
     """(F, K, pz, n_bx, py, 128) planes + (N,) slots -> (N, F) per-particle
-    values in sorted order.  Dropped particles (ok == False) get `fill`.
-
-    One 1D gather per field: TPU lowers batched/2D fancy indexing to a
-    pathologically slow path (~80ms/1M rows measured); plain 1D gathers are
-    ~0.2ms.
-    """
+    values in sorted order.  Dropped particles (ok == False) get `fill`."""
     f = plane_stack.shape[0]
     flat = plane_stack.reshape(f, -1)
     idx = jnp.minimum(slot, flat.shape[1] - 1)
-    cols = [jnp.where(ok, flat[i][idx], fill) for i in range(f)]
-    return jnp.stack(cols, axis=-1)
+    return jnp.where(ok[:, None], flat[:, idx].T, fill)

@@ -5,7 +5,7 @@ shaders, camera (SURVEY.md §2 "Renderer"; BASELINE.json north_star: "the
 OpenGL render path is replaced by a device-side rasterize-to-framebuffer
 kernel plus NumPy export").
 
-TPU-native design: there is no GL; the framebuffer is a jnp array produced
+Design: there is no GL; the framebuffer is a jnp array produced
 on device by scatter-add splatting, fully inside jit (it can run inside the
 scanned step loop for zero-copy movie export).  3D uses an orthographic
 camera (azimuth/elevation rotation) and splats with depth-based brightness;
@@ -21,6 +21,7 @@ import struct
 import zlib
 from typing import Optional, Sequence, Tuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -38,7 +39,7 @@ def _camera_matrix(dim: int, azimuth: float, elevation: float):
     rx = np.array([[1, 0, 0],
                    [0, math.cos(el), math.sin(el)],
                    [0, -math.sin(el), math.cos(el)]], np.float32)
-    return rx @ rz
+    return rx @ rz          # host NumPy product: exact f32, no TF32
 
 
 def splat(pos, params: SimParams, width: int = 512, height: int = 512,
@@ -52,7 +53,9 @@ def splat(pos, params: SimParams, width: int = 512, height: int = 512,
     hi = jnp.asarray(params.bounds_max, jnp.float32)
     cam = jnp.asarray(_camera_matrix(params.dim, azimuth, elevation))
     centered = (pos - lo) / (hi - lo) - 0.5            # [-0.5, 0.5]^d
-    proj = centered @ cam.T                             # camera frame
+    # camera frame; HIGHEST keeps the GPU from rounding the f32 product
+    # through TF32 (frames would shift by a pixel)
+    proj = jnp.matmul(centered, cam.T, precision=jax.lax.Precision.HIGHEST)
     u = (proj[:, 0] + 0.5) * (width - 1)
     v = (0.5 - proj[:, 1]) * (height - 1)               # y up -> row down
     if params.dim == 3:

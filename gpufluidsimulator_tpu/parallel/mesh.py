@@ -1,15 +1,16 @@
 """Device mesh construction.
 
 Reference counterpart: none — the reference is single-GPU with no NCCL/MPI
-(SURVEY.md §2 "Distributed communication backend").  The TPU rebuild scales by
-spatial domain decomposition over the ICI mesh (BASELINE.json north_star:
-"shards the spatial grid across the ICI mesh with halo exchange of ghost
-particles via jax.lax.ppermute").
+(SURVEY.md §2 "Distributed communication backend").  This rebuild scales by
+spatial domain decomposition: the spatial grid is sharded across a device
+mesh with halo exchange of ghost particles via jax.lax.ppermute (NCCL on
+GPUs).
 
-A 1D mesh along the simulation x axis suffices: halo traffic rides
-nearest-neighbor ICI links, and each device's x slab keeps the Pallas
-kernels' 128-lane tiling intact.  Multi-host meshes come for free through
-jax.distributed + the same Mesh API (DCN between hosts, ICI within).
+A 1D mesh along the simulation x axis is the algorithm's choice: halo and
+migration traffic only goes to the two x neighbours, and each device's x
+slab keeps the plane layout's 128-lane x tiles intact.  (The cards of one
+host are joined all to all, so the mesh need not follow any topology.)
+Multi-host meshes come through jax.distributed + the same Mesh API.
 """
 
 from __future__ import annotations
@@ -29,9 +30,9 @@ def init_distributed(coordinator_address: Optional[str] = None,
     """Multi-host (DCN) entry point: initialize the JAX distributed runtime.
 
     Call ONCE per process, before any other jax API, when the mesh spans
-    hosts (SURVEY.md §5.8: cross-host transport is DCN via
-    ``jax.distributed``; within a host/pod slice XLA rides ICI with no
-    extra setup).  Arguments default to the environment:
+    hosts (SURVEY.md §5.8: cross-host transport via ``jax.distributed``;
+    the devices of one host need no extra setup).  Arguments default to
+    the environment:
 
       FLUID_COORDINATOR   host:port of process 0's coordinator service
       FLUID_NUM_PROCESSES total process count

@@ -1,11 +1,11 @@
 """Spatial domain decomposition: shard_map + ppermute ghost exchange.
 
 Reference counterpart: none exists (single-GPU reference); this implements
-BASELINE.json north_star's multi-chip requirement: "Multi-chip scaling shards
-the spatial grid across the ICI mesh with halo exchange of ghost particles
-via jax.lax.ppermute" (config 5: 4M particles on a v5e-8 mesh).
+the multi-device requirement of BASELINE.json: the spatial grid is sharded
+across a device mesh with halo exchange of ghost particles via
+jax.lax.ppermute (config 5: 4M particles).
 
-Design (TPU-native, no MPI-style bookkeeping):
+Design (no MPI-style bookkeeping):
   * each device owns an x slab of the global cell grid (nx_local cells) and a
     fixed-capacity particle array (N_cap slots; free slots are inactive:
     ids == -1, pos parked at the sentinel);
@@ -16,13 +16,13 @@ Design (TPU-native, no MPI-style bookkeeping):
          misses are counted (mig_overflow), never silently dropped.
       2. local bin -> GHOST EXCHANGE — the outermost halo lanes of the rank
          planes are filled from the neighbor's edge cells via ppermute (the
-         cross-device twin of planes.halo_x) -> Pallas sweeps -> integrate
-         against the GLOBAL walls (slab edges are open).
+         cross-device twin of planes.halo_x) -> neighbour sweeps ->
+         integrate against the GLOBAL walls (slab edges are open).
   * everything lives inside jit; whole rollouts run as shard_map(lax.scan) —
-    one device program, halos and migration riding ICI inside the scan.
+    one program, halos and migration riding collectives inside the scan.
 
 Tested on the 8-virtual-device CPU mesh (SURVEY.md §4.5); the same code
-drives a real v5e-8 ICI mesh.
+drives a multi-GPU mesh (NCCL collectives).
 """
 
 from __future__ import annotations
@@ -69,8 +69,7 @@ def migrate(pos, vel, ids, x_origin, width, m_cap: int, n_dev: int):
     go_l = active & (x < x_origin)
     go_r = active & (x >= x_origin + width)
     # group: stayers(0) < leavers-left(1) < leavers-right(2) < inactive(3);
-    # one multi-operand sort carries the fields (15x cheaper than argsort +
-    # permutation gathers on TPU, see ops/planes.build_planes)
+    # one multi-operand sort carries the fields
     key = (go_l.astype(jnp.int32) + 2 * go_r.astype(jnp.int32)
            + jnp.where(active, 0, 3))
     ops = ((key,) + tuple(pos[:, j] for j in range(d))
@@ -207,7 +206,7 @@ def _local_step(pos, vel, ids, params: SimParams, params_loc: SimParams,
 def run_sharded(sstate: ShardedState, params: SimParams, mesh: Mesh,
                 n_steps: int, m_cap: int) -> ShardedState:
     """Advance n_steps: ONE jitted program, scan inside shard_map, halos and
-    migration riding ICI inside the scan."""
+    migration riding collectives inside the scan."""
     n_dev = mesh.devices.size
     params_loc, nx_local = local_params(params, n_dev)
 
@@ -248,16 +247,16 @@ def run_sharded_inc(sstate: ShardedState, params: SimParams, mesh: Mesh,
 
     Each device's rank-plane stack is the scan-carried state (one
     ``inc.to_planes`` conversion per rollout, not per step); ghost lanes
-    and slab-crossing movers ride ICI inside the scan — the migration
-    payload is two (7, mig_cap) mover buffers per step instead of the
+    and slab-crossing movers ride collectives inside the scan — the
+    migration payload is two (7, mig_cap) mover buffers per step instead of the
     full-path's particle-array repack (ops/inc.py ``exchange_movers``).
     Physics-capacity losses (mover stage, arrival ranks, cell ranks)
-    accumulate into ``overflow``; ICI mover-buffer capacity misses
+    accumulate into ``overflow``; mover-buffer capacity misses
     accumulate into ``mig_overflow`` — the two failure modes stay
     independently observable, exactly as on ``run_sharded``.
 
     ``continuity``: the carried-density tier (ops/inc.py) — rho rides as
-    an 8th plane/mover channel over the same ICI exchanges.
+    an 8th plane/mover channel over the same exchanges.
     """
     from ..ops import inc
     n_dev = mesh.devices.size

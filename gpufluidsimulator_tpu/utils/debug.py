@@ -1,20 +1,18 @@
 """Sanitizer tier: NaN/overflow checking and determinism harness.
 
 Reference counterpart: none in-repo (the CUDA project would use external
-cuda-memcheck / compute-sanitizer, SURVEY.md §5.2).  In the TPU rebuild races
-are designed out (pure functional steps); this module provides the remaining
-sanitizer needs:
+cuda-memcheck / compute-sanitizer, SURVEY.md §5.2).  Here races are designed
+out (pure functional steps); this module provides the remaining sanitizer
+needs:
 
   * ``checked_step`` — jax.experimental.checkify wrapper that turns NaN /
     overflow-counter violations into hard errors with payloads;
   * ``assert_deterministic`` — same state twice -> bitwise-equal results
-    (the TPU analog of a race detector);
-  * ``interpret_mode`` — run the Pallas kernels interpreted for debugging.
+    (a race detector's analog).
 """
 
 from __future__ import annotations
 
-import contextlib
 from typing import Callable
 
 import jax
@@ -62,11 +60,3 @@ def assert_deterministic(params: SimParams, state: State, n_steps: int = 10,
         if not np.array_equal(np.asarray(x), np.asarray(y)):
             raise AssertionError(f"nondeterministic field {name!r} after "
                                  f"{n_steps} steps with method={method!r}")
-
-
-@contextlib.contextmanager
-def interpret_mode():
-    """Force Pallas kernels through the interpreter (slow, debuggable)."""
-    from jax.experimental.pallas import tpu as pltpu
-    with pltpu.force_tpu_interpret_mode():
-        yield

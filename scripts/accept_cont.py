@@ -1,8 +1,8 @@
 """On-chip mirror of test_full_cfl_1000_steps_statistical_acceptance for
 the continuity tier: runs the SAME observables/envelope protocol on the
-real TPU for both pallas_inc and pallas_inc_cont and prints the margins
-(got / tolerance per checkpoint), so alpha/RESUM_EVERY choices can be
-judged in minutes instead of an interpret-mode hour.
+default device for both pallas_inc and pallas_inc_cont and prints the
+margins (got / tolerance per checkpoint), so alpha/RESUM_EVERY choices can
+be judged in minutes.
 
 Usage: python scripts/accept_cont.py [alpha] [resum_every]
 """

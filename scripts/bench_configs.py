@@ -1,16 +1,14 @@
 """One-command benchmark sweep over the five BASELINE.json configs.
 
-Emits one JSON object per config (and a summary array) so each round's
-measured table in BASELINE.md can be refreshed from a single artifact:
+Emits one JSON object per config (and a summary array), each naming the
+device it ran on:
 
     python scripts/bench_configs.py [--out bench_configs.json] [--quick]
 
-Config 5 (4M sharded over v5e-8) runs on however many chips are attached —
-in this dev environment that is ONE (SURVEY.md §0 [ENV]), so the row records
-the single-chip rate and the device count; the 8-chip number requires a pod.
-Timing = slope method on the evolved flow (100 warmup steps), matching
-BASELINE.md's methodology.  Run on a quiet host: the build host has one CPU
-core and concurrent jobs corrupt slope timings.
+Config 5 (4M particles) runs here on the first device only; the row records
+the single-device rate and the device count (the sharded run is
+``python chip_smoke.py --four``).  Timing: ms per step on the flow after
+100 warm-up steps, fenced with block_until_ready (utils/profiling).
 """
 
 from __future__ import annotations
@@ -30,7 +28,8 @@ CONFIGS = [
     # (name, scene, n, dim, method)
     ("1: 2D dam-break 4k naive O(N^2)", "dam_break", 4096, 2, "naive"),
     ("2: 2D dam-break 65k uniform grid", "dam_break", 65536, 2, "pallas_inc"),
-    ("3: 3D dam-break 262k Pallas", "dam_break", 262144, 3, "pallas_inc"),
+    ("3: 3D dam-break 262k rank planes", "dam_break", 262144, 3,
+     "pallas_inc"),
     ("4: 3D double dam-break 1M fused scan", "double_dam_break",
      1_000_000, 3, "pallas_inc"),
     ("5: 3D 4M sharded + halo exchange", "double_dam_break",
@@ -42,7 +41,7 @@ def bench_one(name, scene, n, dim, method, warm, k1, k2):
     import jax
     from gpufluidsimulator_tpu import scenes
     from gpufluidsimulator_tpu.models import solver
-    from gpufluidsimulator_tpu.utils.profiling import slope_time
+    from gpufluidsimulator_tpu.utils.profiling import step_time
 
     params, state = scenes.SCENES[scene](n=n, dim=dim)
     params = params.replace(diagnostics=False)
@@ -55,14 +54,16 @@ def bench_one(name, scene, n, dim, method, warm, k1, k2):
         geom = pm.geometry(params)
         m_cap = inc.mover_capacity(state.n)
         s0 = inc.to_planes(state.pos, state.vel, state.ids, params, geom)
-        t = slope_time(lambda s: inc.step_planes(s, params, geom, m_cap),
-                       s0, k1=k1, k2=k2)
+        t = step_time(lambda s: inc.step_planes(s, params, geom, m_cap),
+                      s0, k=k2 - k1)
     else:
         fn = solver._METHODS[method]
-        t = slope_time(lambda s: fn(s, params), state, k1=k1, k2=k2)
+        t = step_time(lambda s: fn(s, params), state, k=k2 - k1)
+    dev = jax.devices()[0]
     return {
         "config": name, "scene": scene, "n": state.n, "dim": dim,
-        "method": method, "devices": jax.device_count(),
+        "method": method, "platform": dev.platform,
+        "device_kind": dev.device_kind, "devices": jax.device_count(),
         "ms_per_frame": t * 1e3,
         "particle_steps_per_sec": state.n / t,
     }
@@ -72,7 +73,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default="bench_configs.json")
     ap.add_argument("--quick", action="store_true",
-                    help="shorter warmup/slope (noisier, ~2x faster)")
+                    help="shorter warmup and timing window (noisier)")
     ap.add_argument("--configs", default="1,2,3,4,5",
                     help="comma-separated config numbers to run")
     args = ap.parse_args()

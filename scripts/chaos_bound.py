@@ -1,7 +1,7 @@
 """Quantify the full-CFL chaos bound for the config-1 1000-step acceptance.
 
-VERDICT r1 item 5: the 1000-step oracle test runs at dt/2 with a one-point
-Lyapunov justification.  This experiment makes the bound quantitative and
+The 1000-step oracle test runs at dt/2 with a one-point Lyapunov
+justification.  This experiment makes the bound quantitative and
 implementation-independent:
 
   * run the float64 C++ oracle TWICE from initial positions that differ by
@@ -15,8 +15,8 @@ implementation-independent:
 If the f64-vs-f64 1-ulp divergence crosses 1e-3 before step 1000 at full
 CFL, then NO f32 implementation (ours or the reference's CUDA path) can
 meet 1e-3@1000 in that regime — the bound is floating-point-theoretic, not
-an implementation defect.  Output: JSON lines + a summary block for
-BASELINE.md.
+an implementation defect.  Output: JSON lines + a summary block (the
+recorded curves are docs/chaos_bound.json).
 
 Usage: python scripts/chaos_bound.py [n] [steps] [every]
 """

@@ -1,9 +1,9 @@
-"""Long-soak robustness artifact (VERDICT r3 #7): 5000 steps @1M 3D double
-dam break on the production (planes-resident) pipeline, chunked into
-worker-safe device programs, recording per-chunk wall rate, overflow and
-NaN checks into a committed JSON (docs/soak.json).
+"""Long-soak robustness run: 5000 steps @1M 3D double dam break on the
+production (planes-resident) pipeline, in chunks of ``chunk`` steps,
+recording per-chunk wall rate, live count, overflow and NaN checks into a
+JSON file (``soak.json`` / ``soak_cont.json`` in the working directory).
 
-Usage: python scripts/soak.py [N] [steps] [chunk] [method]
+Usage: python scripts/soak.py [N] [steps] [chunk] [cont]
 """
 
 from __future__ import annotations
@@ -98,8 +98,10 @@ def main():
         ),
     )
     name = "soak_cont.json" if continuity else "soak.json"
-    path = os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "docs", name)
+    path = os.path.abspath(name)
+    dev = jax.devices()[0]
+    out["device"] = dict(platform=dev.platform, kind=dev.device_kind,
+                         count=jax.device_count())
     with open(path, "w") as f:
         json.dump(out, f, indent=1)
     print(f"wrote {path}: {out['summary']}")

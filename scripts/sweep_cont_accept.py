@@ -2,7 +2,7 @@
 
 Runs the f64 oracle (+1-ulp twin) ONCE and caches its checkpoint
 observables, then evaluates any number of (cont_form, cont_beta) variants
-on the chip in seconds each, printing SIGNED KE deviation (the
+on the default device in seconds each, printing SIGNED KE deviation (the
 accept_cont gate only shows |.|, which hides whether a variant pumps or
 damps energy — the round-5 sum-form tuning needed the sign).
 

@@ -70,7 +70,8 @@ def test_bench_json(capsys):
             if ln.startswith("{")][-1]
     d = json.loads(line)
     assert d["value"] > 0 and d["ms_per_frame"] > 0
-    assert d["metric"] == "particle-steps/sec/chip"
+    assert d["metric"] == "particle-steps/sec/device"
+    assert d["platform"] == "cpu" and d["device_count"] >= 1
 
 
 def test_render_from_checkpoint(tmp_path, capsys):
@@ -94,7 +95,7 @@ def test_param_overrides(capsys):
 
 def test_run_spawn_boxes_cli(capsys):
     """The reference's 'particle spawn boxes' capability through the app
-    layer (VERDICT round 2 #7): two boxes, the second with a velocity."""
+    layer: two boxes, the second with a velocity."""
     rc = main(["run", "--scene", "spawn_boxes", "-n", "400", "--dim", "2",
                "--steps", "10", "--report-every", "10", "--method", "naive",
                "--box", "0.0,0.0:1.0,0.25",
@@ -135,7 +136,7 @@ def test_box_requires_spawn_boxes():
 
 def test_sharded_movie_refused(tmp_path):
     """--sharded --movie must refuse loudly, not silently run single-device
-    (VERDICT round 4 weak #4): the movie branch records frames via
+   : the movie branch records frames via
     solver.rollout, which has no sharded counterpart."""
     with pytest.raises(SystemExit, match="mutually exclusive"):
         main(["run", "-n", "200", "--dim", "2", "--steps", "10",
@@ -145,7 +146,7 @@ def test_sharded_movie_refused(tmp_path):
 
 def test_run_profile_dir(tmp_path, capsys):
     """--profile-dir wraps the run in a jax.profiler trace and lands a
-    TensorBoard/Perfetto dump (VERDICT round 2 #9)."""
+    TensorBoard/Perfetto dump."""
     pd = str(tmp_path / "trace")
     rc = main(["run", "-n", "200", "--dim", "2", "--steps", "5",
                "--report-every", "5", "--method", "naive",

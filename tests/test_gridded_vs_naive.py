@@ -66,7 +66,7 @@ def test_gridded_anisotropic_cells_match_naive():
     """Per-axis binning cells (SimParams.cell_aniso): a finer-than-h x cell
     widens the x stencil to ceil(h/cell_x) offsets and must find exactly
     the same neighbor sets as the naive path.  (The pallas planes tier
-    rejects cell_x < h by design — BASELINE.md round-3 negative result.)"""
+    rejects cell_x < h by design — docs/ARCHITECTURE.md, occupancy.)"""
     from gpufluidsimulator_tpu.ops import planes as pm
 
     params, state = scenes.dam_break(n=1000, dim=2, jitter=0.3, seed=3)
@@ -80,7 +80,7 @@ def test_gridded_anisotropic_cells_match_naive():
     assert int(overflow) == 0
     assert _rel(rho_g, rho_n) < 1e-5
     # short trajectory (the different stencil changes fp summation order,
-    # so long runs diverge at the chaos rate — see BASELINE.md chaos bound)
+    # so long runs diverge at the chaos rate — see docs/ARCHITECTURE.md, chaos bound)
     sn = run(state, params, 30, method="naive")
     sg = run(state, pa, 30, method="gridded")
     assert _rel(sg.pos, sn.pos) < 1e-4

@@ -1,6 +1,6 @@
 """Incremental-binning path (ops/inc.py): mover detection, flagged
 compaction, mover re-insertion/consolidation, the fused
-force+integrate kernel, and full-step equivalence with the full-rebuild
+force+integrate sweep, and full-step equivalence with the full-rebuild
 pallas path (SURVEY.md §4.3 oracle strategy applied to the new tier)."""
 
 import jax
@@ -13,9 +13,7 @@ from gpufluidsimulator_tpu.models import solver
 from gpufluidsimulator_tpu.ops import inc, physics
 from gpufluidsimulator_tpu.ops import planes as pm
 
-pytestmark = pytest.mark.heavy   # interpret-mode Pallas tier (>5 min on the
-# 1-core host); the driver's dryrun_multichip exercises the inc pipeline
-# every round, and `pytest -m heavy` runs the full set
+pytestmark = pytest.mark.heavy   # multi-step integration tier
 
 
 def _scene(n=700, dim=2, seed=3, jitter=0.3):
@@ -46,134 +44,103 @@ def test_fresh_state_has_no_movers():
     assert int(s.overflow) == 0
 
 
-def test_compact_flagged_matches_host_path():
+@pytest.mark.parametrize("density", [0.003, 0.3, 1.0])
+def test_compact_flagged_every_flag_once(density):
+    """Every flagged slot's values come out exactly once, in slot order,
+    with the count; the columns past the count are zero."""
     params, state = _scene(n=500)
     geom = pm.geometry(params)
     s = inc.to_planes(state.pos, state.vel, state.ids, params, geom)
     rng = np.random.default_rng(0)
     valid = np.asarray((s.fields6[0] < pm.SENTINEL * 0.5)
                        & inc.interior_mask(geom)[None])
-    flags = jnp.asarray(valid & (rng.random(valid.shape) < 0.3))
-    channels = [s.fields6[i] for i in range(6)] + [s.idp]
-    cap = inc._round_tile(state.n)
-    v_host, m_host = inc.compact_flagged(channels, flags, cap,
-                                         use_kernel=False)
-    v_kern, m_kern = inc.compact_flagged(channels, flags, cap,
-                                         use_kernel=True)
-    assert int(m_host) == int(m_kern) == int(np.sum(np.asarray(flags)))
-    m = int(m_host)
-    np.testing.assert_array_equal(np.asarray(v_host)[:, :m],
-                                  np.asarray(v_kern)[:, :m])
+    flags = valid & (rng.random(valid.shape) < density)
+    cap = state.n + 128
+    vals, m = inc.compact_flagged([s.fields6, s.idp], jnp.asarray(flags),
+                                  cap)
+    m = int(m)
+    assert m == int(flags.sum())
+    vals = np.asarray(vals)
+    want = np.concatenate([np.asarray(s.fields6)[:, flags],
+                           np.asarray(s.idp)[flags][None]], axis=0)
+    np.testing.assert_array_equal(vals[:, :m], want)
+    assert (vals[:, m:] == 0.0).all()
+    assert sorted(vals[6, :m].astype(int)) == sorted(
+        np.asarray(s.idp)[flags].astype(int))
 
 
-def test_compact_flagged_hot_lane_fallback():
-    """A lane holding > STAGE_B flags forces the kernel's full-64-row
-    fallback path; host/kernel parity must hold through it (the output
-    order is the same (lane-rank, lane) order on both branches)."""
+def test_compact_flagged_grouped_equals_split():
+    """A grouped (6, ...) channel stack and the same channels passed one by
+    one give identical rows."""
     params, state = _scene(n=500)
     geom = pm.geometry(params)
     s = inc.to_planes(state.pos, state.vel, state.ids, params, geom)
     valid = np.asarray((s.fields6[0] < pm.SENTINEL * 0.5)
                        & inc.interior_mask(geom)[None])
-    rng = np.random.default_rng(2)
-    fl = valid & (rng.random(valid.shape) < 0.1)
-    # stack one flat column (a fixed lane of a fixed routing tile) full of
-    # flags: flatten, pick lane 7 of tile 0's 64 rows
-    flat = fl.reshape(-1)
-    hot_idx = np.arange(inc.STAGE_B + 4) * pm.LANES + 7
-    flat[hot_idx] = True
-    flags = jnp.asarray(flat.reshape(fl.shape))
-    channels = [s.fields6[i] for i in range(6)] + [s.idp]
-    cap = inc._round_tile(state.n)
-    v_host, m_host = inc.compact_flagged(channels, flags, cap,
-                                         use_kernel=False)
-    v_kern, m_kern = inc.compact_flagged(channels, flags, cap,
-                                         use_kernel=True)
-    assert int(m_host) == int(m_kern) == int(np.sum(np.asarray(flags)))
-    m = int(m_host)
-    np.testing.assert_array_equal(np.asarray(v_host)[:, :m],
-                                  np.asarray(v_kern)[:, :m])
+    flags = jnp.asarray(valid & (np.random.default_rng(7).random(
+        valid.shape) < 0.1))
+    cap = inc.mover_capacity(state.n)
+    a, ma = inc.compact_flagged([s.fields6, s.idp], flags, cap)
+    b, mb = inc.compact_flagged([s.fields6[i] for i in range(6)] + [s.idp],
+                                flags, cap)
+    assert int(ma) == int(mb)
+    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-@pytest.mark.parametrize("grouped", [True, False])
-def test_compact_flagged_single_flag_fast_path(grouped):
-    """Tiles holding exactly ONE flagged slot take the masked-reduce fast
-    path (cls == 0); host/kernel parity must hold through it, including
-    tiles whose single flag sits at an awkward lane/row and tiles mixing
-    classes within one COMPACT_BATCH.  Parametrized over both channel
-    forms: the grouped (6, ...) stack (supported, tested here) and the
-    ungrouped per-channel list the production callers use (the strided
-    group DMA measured slower — see inc.to_flat)."""
+def test_compact_flagged_caps_at_max_out():
+    """More flags than capacity: the count saturates at max_out (the step
+    charges the excess to overflow) and the kept rows are the first ones
+    in slot order."""
     params, state = _scene(n=500)
     geom = pm.geometry(params)
     s = inc.to_planes(state.pos, state.vel, state.ids, params, geom)
-    valid = np.asarray((s.fields6[0] < pm.SENTINEL * 0.5)
-                       & inc.interior_mask(geom)[None])
-    flat_v = valid.reshape(-1)
-    nt = flat_v.shape[0] // inc.TILE
-    fl = np.zeros_like(flat_v)
-    rng = np.random.default_rng(7)
-    for t in range(nt):
-        cand = np.nonzero(flat_v[t * inc.TILE:(t + 1) * inc.TILE])[0]
-        if cand.size == 0:
-            continue
-        if t % 3 == 0:          # single-flag tile -> cls 0
-            fl[t * inc.TILE + rng.choice(cand)] = True
-        elif t % 3 == 1:        # multi-flag tile -> cls 1
-            k = min(5, cand.size)
-            fl[t * inc.TILE + rng.choice(cand, size=k, replace=False)] = True
-        # t % 3 == 2: empty tile
-    flags = jnp.asarray(fl.reshape(valid.shape))
-    if grouped:
-        channels = [s.fields6, s.idp]              # 6-ch group + id
-    else:
-        channels = [s.fields6[i] for i in range(6)] + [s.idp]
-    cap = inc._round_tile(state.n)
-    v_host, m_host = inc.compact_flagged(channels, flags, cap,
-                                         use_kernel=False)
-    v_kern, m_kern = inc.compact_flagged(channels, flags, cap,
-                                         use_kernel=True)
-    assert int(m_host) == int(m_kern) == int(fl.sum())
-    m = int(m_host)
-    np.testing.assert_array_equal(np.asarray(v_host)[:, :m],
-                                  np.asarray(v_kern)[:, :m])
+    valid = (s.fields6[0] < pm.SENTINEL * 0.5) & inc.interior_mask(geom)[None]
+    vals, m = inc.compact_flagged([s.idp], valid, 128)
+    assert int(m) == 128
+    want = np.asarray(s.idp)[np.asarray(valid)][:128]
+    np.testing.assert_array_equal(np.asarray(vals)[0], want)
 
 
-@pytest.mark.parametrize("m", [37, inc.TILE + 5, 2 * inc.TILE + 5])
-def test_arrival_planes_tier_equivalence(m):
-    """The small-prefix arrival tiers (lax.cond over the mover count) must
-    produce the same arrival stack as the full-space path on live tiles.
-    m parametrized so every cond branch of the tier ladder is exercised:
-    37 -> cap=TILE tier, TILE+5 -> cap=2*TILE tier, 2*TILE+5 -> the
-    full-space fallback.  Movers are placed one per DISTINCT cell: the two
-    mover sorts are UNSTABLE, so same-cell ties may legitimately resolve
-    differently between a prefix tier and the full path (in-cell rank
-    order is physically arbitrary, and at > ARRIVAL_K duplicates even the
-    surviving subset is tie-dependent) — distinct cells make the
-    comparison exact."""
-    params, _ = scenes.dam_break(n=10000, dim=2)
-    geom = pm.geometry(params)
-    max_out = 4 * inc.TILE              # tiers at TILE and 2*TILE
-    rng = np.random.default_rng(11)
-    assert geom.nx * geom.ny >= m, "scene grid too small for distinct cells"
+def _movers_one_per_cell(params, geom, m, max_out, seed=11):
+    rng = np.random.default_rng(seed)
     sel = rng.choice(geom.nx * geom.ny, size=m, replace=False)
     mv = np.zeros((7, max_out), np.float32)
     mv[0, :m] = (sel % geom.nx + 0.5) * params.cells_axis[0]
     mv[1, :m] = (sel // geom.nx + 0.5) * params.cells_axis[1]
     mv[3:6, :m] = rng.normal(size=(3, m)).astype(np.float32)
     mv[6, :m] = np.arange(m, dtype=np.float32)
-    movers = jnp.asarray(mv)
-    mj = jnp.int32(m)
-    # full path forced via an explicit live mask (the sharded entry)
-    st_f, live_f, drop_f = inc.arrival_planes(
-        movers, mj, params, geom,
-        live=jnp.arange(max_out, dtype=jnp.int32) < mj)
-    st_t, live_t, drop_t = inc.arrival_planes(movers, mj, params, geom)
-    np.testing.assert_array_equal(np.asarray(live_f), np.asarray(live_t))
-    assert int(drop_f) == int(drop_t)
-    lt = np.asarray(live_f).astype(bool)
-    np.testing.assert_array_equal(np.asarray(st_f)[:, :-1][:, lt],
-                                  np.asarray(st_t)[:, :-1][:, lt])
+    return mv
+
+
+@pytest.mark.parametrize("m", [37, 500, 2000])
+def test_consolidate_places_every_live_mover(m):
+    """Movers arriving into empty planes land once each, in their own
+    cell, at rank 0; dead columns are ignored."""
+    params, _ = scenes.dam_break(n=10000, dim=2)
+    geom = pm.geometry(params)
+    max_out = 4096
+    mv = _movers_one_per_cell(params, geom, m, max_out)
+    empty6 = jnp.concatenate([
+        jnp.full((3,) + (geom.k, geom.pz, geom.n_bx, geom.py, pm.LANES),
+                 pm.SENTINEL, jnp.float32),
+        jnp.zeros((3, geom.k, geom.pz, geom.n_bx, geom.py, pm.LANES),
+                  jnp.float32)])
+    idp = jnp.full(empty6.shape[1:], -1.0, jnp.float32)
+    live = jnp.arange(max_out) < m
+    f6, idp_o, lost = inc.consolidate(
+        empty6, idp, jnp.zeros_like(idp), jnp.asarray(mv), live, params,
+        geom)
+    assert int(lost) == 0
+    valid = np.asarray(f6[0] < pm.SENTINEL * 0.5)
+    assert valid.sum() == m and valid[1:].sum() == 0
+    ids = np.asarray(idp_o)[valid].astype(int)
+    np.testing.assert_array_equal(np.sort(ids), np.arange(m))
+    cid = np.asarray(pm.cell_linear_parts(
+        jnp.asarray(mv[:2, :m].T), params, geom))
+    slot_of = {int(i): int(c) for i, c in zip(
+        np.asarray(idp_o).reshape(geom.k, -1)[0][valid[0].reshape(-1)],
+        np.nonzero(valid[0].reshape(-1))[0])}
+    assert all(slot_of[j] == cid[j] for j in range(m))
 
 
 def test_incremental_rebin_matches_full_rebuild():
@@ -211,11 +178,11 @@ def test_incremental_rebin_matches_full_rebuild():
     movers, m = inc.compact_flagged(channels, flags,
                                     inc.mover_capacity(state.n))
     assert int(m) == n_moved
-    arr, live_t, lost_dup = inc.arrival_planes(movers, m, params, geom)
     flagp = flags.astype(jnp.float32)
-    fields6, idp, lost_rank = inc.consolidate(s2.fields6, s2.idp, flagp,
-                                              arr, live_t, geom)
-    assert int(lost_dup) == 0 and int(lost_rank) == 0
+    live = jnp.arange(movers.shape[1]) < m
+    fields6, idp, lost = inc.consolidate(s2.fields6, s2.idp, flagp, movers,
+                                         live, params, geom)
+    assert int(lost) == 0
 
     ref = pm.build_planes(new_pos, state.vel, state.ids, params, geom,
                           with_ids=True)
@@ -232,11 +199,9 @@ def test_fused_integrate_matches_separate():
                                                       density_planes)
     s = inc.to_planes(state.pos, state.vel, state.ids, params, geom)
     planes6 = pm.halo_x(s.fields6)
-    occ_q, occ_s = pm.occupancy_bounds(planes6, params, geom)
-    rho = pm.halo_x(density_planes(planes6[:3], occ_q, occ_s, params, geom))
-    acc = accel_planes(planes6, rho, occ_q, occ_s, params, geom)
-    fused = accel_planes(planes6, rho, occ_q, occ_s, params, geom,
-                         fuse_integrate=True)
+    rho = pm.halo_x(density_planes(planes6[:3], params, geom))
+    acc = accel_planes(planes6, rho, params, geom)
+    fused = accel_planes(planes6, rho, params, geom, fuse_integrate=True)
 
     valid = np.asarray((planes6[0] < pm.SENTINEL * 0.5)
                        & inc.interior_mask(geom)[None])
@@ -265,7 +230,7 @@ def test_fused_integrate_matches_separate():
 
 @pytest.mark.parametrize("dim", [2, 3])
 def test_emit_movers_matches_detect(dim):
-    """The force kernel's in-VMEM mover flagging (emit_movers) must agree
+    """The force sweep's fused mover flagging (emit_movers) must agree
     with the standalone detect_movers pass applied to the plain fused
     output: identical post-step planes on interior slots, identical mover
     flag set, and extract_movers pulls exactly the flagged ids/values."""
@@ -275,18 +240,16 @@ def test_emit_movers_matches_detect(dim):
     geom = pm.geometry(params)
     s = inc.to_planes(state.pos, state.vel, state.ids, params, geom)
     planes6 = pm.halo_x(s.fields6)
-    occ_q, occ_s = pm.occupancy_bounds(planes6, params, geom)
-    rho = pm.halo_x(density_planes(planes6[:3], occ_q, occ_s, params, geom))
-    fused = accel_planes(planes6, rho, occ_q, occ_s, params, geom,
-                         fuse_integrate=True)
-    new6, flagp = accel_planes(planes6, rho, occ_q, occ_s, params,
-                               geom, fuse_integrate=True, emit_movers=True)
+    rho = pm.halo_x(density_planes(planes6[:3], params, geom))
+    fused = accel_planes(planes6, rho, params, geom, fuse_integrate=True)
+    new6, flagp = accel_planes(planes6, rho, params, geom,
+                               fuse_integrate=True, emit_movers=True)
     _, _, flags = inc.detect_movers(fused, s.idp, params, geom)
     assert int(jnp.sum(flags)) > 5, "scene should produce some movers"
 
     im = np.broadcast_to(np.asarray(inc.interior_mask(geom))[None],
                          np.asarray(fused[0]).shape)
-    # unblanked post-step planes match the plain fused output on interior
+    # post-step planes match the plain fused output on interior
     for ch in range(6):
         np.testing.assert_array_equal(np.asarray(new6[ch])[im],
                                       np.asarray(fused[ch])[im])
@@ -317,8 +280,10 @@ def test_emit_movers_matches_detect(dim):
 
 
 @pytest.mark.parametrize("dim", [2, 3])
-def test_consolidate_kernel_matches_jnp(dim):
-    """Pallas consolidate (interpret mode) vs the jnp reference."""
+def test_consolidate_keeps_every_particle(dim):
+    """Flag a random 15% of the particles as movers without moving them:
+    consolidation must put every particle back (same per-cell id sets),
+    with dense ranks and nothing dropped."""
     params, state = _scene(n=700 if dim == 2 else 900, dim=dim)
     geom = pm.geometry(params)
     s = inc.to_planes(state.pos, state.vel, state.ids, params, geom)
@@ -327,17 +292,17 @@ def test_consolidate_kernel_matches_jnp(dim):
                        & inc.interior_mask(geom)[None])
     flags = jnp.asarray(valid & (rng.random(valid.shape) < 0.15))
     flagp = flags.astype(jnp.float32)
-    channels = [s.fields6[i] for i in range(6)] + [s.idp]
-    movers, m = inc.compact_flagged(channels, flags,
+    movers, m = inc.compact_flagged([s.fields6, s.idp], flags,
                                     inc.mover_capacity(state.n))
-    arr, live_t, _ = inc.arrival_planes(movers, m, params, geom)
-    ref6, refid, refdrop = inc.consolidate(s.fields6, s.idp, flagp, arr,
-                                           live_t, geom, use_kernel=False)
-    got6, gotid, gotdrop = inc.consolidate(s.fields6, s.idp, flagp, arr,
-                                           live_t, geom, use_kernel=True)
-    np.testing.assert_array_equal(np.asarray(got6), np.asarray(ref6))
-    np.testing.assert_array_equal(np.asarray(gotid), np.asarray(refid))
-    assert int(gotdrop) == int(refdrop)
+    live = jnp.arange(movers.shape[1]) < m
+    f6, idp, lost = inc.consolidate(s.fields6, s.idp, flagp, movers, live,
+                                    params, geom)
+    assert int(lost) == 0
+    assert _cell_id_sets(f6, idp, geom) == _cell_id_sets(s.fields6, s.idp,
+                                                         geom)
+    v = np.asarray(f6[0] < pm.SENTINEL * 0.5)
+    # dense ranks: an occupied rank never sits above an empty one
+    assert not (v[1:] & ~v[:-1]).any()
 
 
 @pytest.mark.parametrize("dim,n,steps", [(2, 900, 30), (3, 1200, 12)])
@@ -394,9 +359,9 @@ def test_rollout_inc_records_frames_in_scan():
 
 
 def test_run_inc_chunked_matches_single_program():
-    """Splitting the rollout into several device programs (the worker
-    kills ~90 s programs; ops/inc.STEP_BUDGET_PER_PROGRAM) must be
-    bitwise-identical to one program — same math, same plane state."""
+    """Splitting the rollout into several device programs (run_inc's
+    ``chunk``) must be bitwise-identical to one program — same math, same
+    plane state."""
     from gpufluidsimulator_tpu.ops import inc
     params, state = _scene(n=700, dim=2)
     one = inc.run_inc(state, params, 9, chunk=9)
@@ -426,7 +391,7 @@ def test_continuity_first_step_matches_summation():
 
 
 def test_continuity_drho_matches_n2_reference():
-    """The force kernel's fused RATE-form continuity accumulation must
+    """The force sweep's fused RATE-form continuity accumulation must
     equal the O(N^2) poly6-gradient rate sum m (vi-vj).gradW to float
     tolerance (cont_form='rate' — the round-4 formulation, kept)."""
     from gpufluidsimulator_tpu.ops import kernels, pallas_sph
@@ -436,11 +401,10 @@ def test_continuity_drho_matches_n2_reference():
     geom = pm.geometry(params)
     s = inc.to_planes(st.pos, st.vel, st.ids, params, geom, continuity=True)
     p6 = pm.halo_x(s.fields6)
-    occ_q, occ_s = pm.occupancy_bounds(p6, params, geom)
-    rho_p = pallas_sph.density_planes(p6[:3], occ_q, occ_s, params, geom)
+    rho_p = pallas_sph.density_planes(p6[:3], params, geom)
     rho_h = pm.halo_x(rho_p)
     new6, rho_new, flagp = pallas_sph.accel_planes(
-        p6, rho_h, occ_q, occ_s, params, geom, fuse_integrate=True,
+        p6, rho_h, params, geom, fuse_integrate=True,
         emit_movers=True, continuity=True)
     valid = np.asarray((s.fields6[0] < pm.SENTINEL * 0.5)
                        & inc.interior_mask(geom)[None])
@@ -475,11 +439,10 @@ def test_continuity_sum_rho_matches_n2_reference():
     geom = pm.geometry(params)
     s = inc.to_planes(st.pos, st.vel, st.ids, params, geom, continuity=True)
     p6 = pm.halo_x(s.fields6)
-    occ_q, occ_s = pm.occupancy_bounds(p6, params, geom)
-    rho_p = pallas_sph.density_planes(p6[:3], occ_q, occ_s, params, geom)
+    rho_p = pallas_sph.density_planes(p6[:3], params, geom)
     rho_h = pm.halo_x(rho_p)
     new6, rho_new, flagp = pallas_sph.accel_planes(
-        p6, rho_h, occ_q, occ_s, params, geom, fuse_integrate=True,
+        p6, rho_h, params, geom, fuse_integrate=True,
         emit_movers=True, continuity=True)
     valid = np.asarray((s.fields6[0] < pm.SENTINEL * 0.5)
                        & inc.interior_mask(geom)[None])
@@ -497,7 +460,7 @@ def test_continuity_sum_rho_matches_n2_reference():
     np.testing.assert_allclose(rho_k, ref, rtol=0,
                                atol=2e-6 * params.rest_density)
     # and it must match the standalone density sweep on the same planes
-    # (same math, different kernel/accumulation order)
+    # (same math, different accumulation order)
     rho_sweep = np.asarray(rho_p)[valid]
     np.testing.assert_allclose(rho_k, rho_sweep, rtol=0, atol=2e-3)
 
@@ -555,10 +518,9 @@ def test_continuity_relax_matches_n2_reference():
     # synthetic carried rho (nonzero so the (1-l)*rho_q term is exercised)
     rhop = jnp.where(s.idp >= 0, 900.0 + s.idp % 37, 0.0)
     p6 = pm.halo_x(s.fields6)
-    occ_q, occ_s = pm.occupancy_bounds(p6, params, geom)
     rho_h = pm.halo_x(rhop)
     new6, rho_new, flagp = pallas_sph.accel_planes(
-        p6, rho_h, occ_q, occ_s, params, geom, fuse_integrate=True,
+        p6, rho_h, params, geom, fuse_integrate=True,
         emit_movers=True, continuity=True)
     valid = np.asarray((s.fields6[0] < pm.SENTINEL * 0.5)
                        & inc.interior_mask(geom)[None])
@@ -586,7 +548,7 @@ def test_continuity_relax_matches_n2_reference():
 def test_continuity_relax_decays_carried_drift():
     """RELAX form: drift injected into the carried rho must decay toward
     the in-sweep summation instead of persisting (the rate form carries
-    it until the next resum; VERDICT r4 #6's frozen-rho failure mode)."""
+    it until the next resum)."""
     params, state = _scene(n=700, dim=2)
     params = params.replace(cont_form="relax")
     lam = params.cont_relax
@@ -609,8 +571,8 @@ def test_continuity_relax_decays_carried_drift():
 
 def test_continuity_rho_travels_with_movers():
     """rho is Lagrangian state: when a particle changes cell, its carried
-    density must arrive with it (8th mover channel through stage-compact,
-    the arrival sorts/routing and consolidate)."""
+    density must arrive with it (8th mover channel through the mover
+    gather, the arrival sort and consolidate)."""
     params, state = _scene(n=900, dim=2)
     geom = pm.geometry(params)
     s = inc.to_planes(state.pos, state.vel, state.ids, params, geom,
@@ -647,12 +609,11 @@ def test_continuity_rho_travels_with_movers():
     # rho channel rides with the id channel through the compaction
     np.testing.assert_allclose(mv[7], 1000.0 + mv[6], rtol=0, atol=0)
 
-    arr, live_t, lost_dup = inc.arrival_planes(movers, m, params, geom)
-    assert arr.shape[0] == 8
-    out = inc.consolidate(fields6, s.idp, flagp, arr, live_t, geom,
+    live = jnp.arange(movers.shape[1]) < m
+    out = inc.consolidate(fields6, s.idp, flagp, movers, live, params, geom,
                           rhop=rhop)
-    fields6_o, idp_o, rho_o, lost_rank = out
-    assert int(lost_dup) == 0 and int(lost_rank) == 0
+    fields6_o, idp_o, rho_o, lost = out
+    assert int(lost) == 0
     valid_o = np.asarray((fields6_o[0] < pm.SENTINEL * 0.5)
                          & inc.interior_mask(geom)[None])
     ids_o = np.asarray(idp_o)[valid_o]

@@ -44,10 +44,10 @@ def test_rollout_records_trajectory():
     assert np.abs(np.asarray(traj[0]) - np.asarray(traj[-1])).max() > 1e-4
 
 
-def test_slope_time_positive():
+def test_step_time_positive():
     params, state = scenes.dam_break(n=200, dim=2)
     fn = lambda s: solver._METHODS["naive"](s, params)
-    t = profiling.slope_time(fn, state, k1=1, k2=5, reps=2)
+    t = profiling.step_time(fn, state, k=4, reps=2)
     assert t > 0
 
 

@@ -44,8 +44,8 @@ def test_trajectory_matches_oracle_200_steps():
 @pytest.mark.slow
 @pytest.mark.parametrize("method", ["pallas_inc", "pallas_inc_cont"])
 def test_full_cfl_1000_steps_statistical_acceptance(method):
-    """FULL-dt 1000-step acceptance for the headline pipeline (VERDICT
-    round 2 #5): per-particle trajectories are fp-theoretically
+    """FULL-dt 1000-step acceptance for the headline pipeline: per-particle
+    trajectories are fp-theoretically
     unrecoverable at full CFL (chaos bound below), but DISTRIBUTION-level
     observables are not — the attractor is stable even when particle
     identity scrambles.  This compares pallas_inc against the float64 C++
@@ -57,7 +57,7 @@ def test_full_cfl_1000_steps_statistical_acceptance(method):
     for zero-envelope early checkpoints).
 
     Parametrized over the summation-density pipeline AND the round-4
-    continuity-density tier — the adoption gate VERDICT r3 #1 names.
+    continuity-density tier — its adoption gate.
     """
     from gpufluidsimulator_tpu.oracle import native
     if not native.available():
@@ -130,7 +130,7 @@ def test_trajectory_matches_oracle_1000_steps(method, bound):
     oracle's own 1-ulp self-divergence envelope at dt/2 (2.1e-4), so
     per-particle 1e-3 parity is a summation-tier guarantee; the tier's
     formal acceptance is the full-CFL STATISTICAL test above, which it
-    passes at every checkpoint (BASELINE.md round-4 continuity chapter).
+    passes at every checkpoint (docs/ARCHITECTURE.md, continuity tier).
 
     Run at half the CFL dt because at full CFL the acceptance bound is
     FLOATING-POINT-THEORETICALLY unreachable, independent of
@@ -139,7 +139,7 @@ def test_trajectory_matches_oracle_1000_steps(method, bound):
     crosses 1e-3 at step 550 and ends at 1.6e-2 by step 1000 (dam-impact
     Lyapunov growth, lambda = 0.024/step, e-fold 42 steps — measured
     curves: scripts/chaos_bound.py, committed docs/chaos_bound.json,
-    BASELINE.md 'Chaos bound').  Any f32 implementation differs from the
+    docs/ARCHITECTURE.md, chaos bound).  Any f32 implementation differs from the
     f64 oracle by >= 1 ulp somewhere, so NO f32 path (ours or the
     reference CUDA one) can meet 1e-3@1000 in that regime.  At dt/2 the
     same 1-ulp perturbation stays at 2.1e-4 and our f32 path measures

@@ -1,4 +1,5 @@
-"""Pallas path (interpret mode on CPU) vs naive O(N^2) path (SURVEY.md §4.3).
+"""Rank-plane path (plain sweeps on the CPU) vs naive O(N^2) path
+(SURVEY.md §4.3).
 
 The pallas path returns particles cell-sorted; comparisons re-align by `ids`.
 """
@@ -10,9 +11,8 @@ from gpufluidsimulator_tpu import scenes, run, SimParams
 from gpufluidsimulator_tpu.models import solver
 from gpufluidsimulator_tpu.ops import planes as pm
 
-pytestmark = pytest.mark.heavy   # interpret-mode Pallas tier (>5 min on the
-# 1-core host); run with `pytest -m heavy`.  The driver compile-checks the
-# Pallas step every round (entry()) and the tpu-marked tests cover the chip.
+pytestmark = pytest.mark.heavy   # multi-step integration tier; chip_smoke.py
+# repeats these comparisons on the card
 
 
 def _aligned(state):

@@ -85,8 +85,11 @@ import pytest
 def test_golden_frame_committed(name):
     """SURVEY.md §4.6: rasterizer output hashed against committed golden
     images — 2D dam break, a 3D (camera-projected) dam break, and the
-    obstacle scene (VERDICT round 2 weak #7).  Regenerate intentionally
-    with tests/golden/regen.py (single source of truth for the recipes)."""
+    obstacle scene.  Regenerate intentionally with tests/golden/regen.py
+    (single source of truth for the recipes).  The sha256 goldens hold on
+    the CPU only: on the GPU the splat's scatter-add order is not
+    deterministic, so the on-card tier compares frames with a pixel
+    tolerance instead (tests/test_gpu.py)."""
     import sys
     from gpufluidsimulator_tpu import run
     golden_dir = os.path.join(os.path.dirname(__file__), "golden")

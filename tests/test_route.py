@@ -1,133 +1,92 @@
-"""Monotone butterfly routing (ops/route): the Pallas kernels in interpret
-mode vs the batched-jnp reference, plus network properties.
+"""Placement of particles into rank planes (ops/planes.build_planes) and
+extraction of per-particle values back out of them (planes.gather_slots):
+every particle lands in exactly one slot of its own cell, and reading a
+plane at the particle's slot returns what was placed there."""
 
-The placement network's conflict-freedom proof and a 300-trial NumPy
-prototype are in the ops/route.py docstring; these tests pin the production
-kernels to the same semantics.
-"""
-
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from gpufluidsimulator_tpu import scenes
 from gpufluidsimulator_tpu.ops import planes as pm
-from gpufluidsimulator_tpu.ops import route
 
 
 def _setup(n=1500, dim=2, seed=11):
     params, state = scenes.dam_break(n=n, dim=dim, jitter=0.3, seed=seed)
     geom = pm.geometry(params)
-    table = pm.build_planes(state.pos, state.vel, state.ids, params, geom)
-    bases = jnp.arange(route.n_tiles(geom) + 1, dtype=jnp.int32) * route.TILE
-    starts = jnp.searchsorted(table.slot, bases).astype(jnp.int32)
-    return params, state, geom, table, starts
-
-
-def _inputs_for_place(state, geom, table):
-    n = state.n
-    dim = state.pos.shape[1]
-    rows = route.pad_rows(n)
-    pad = rows * pm.LANES - n
-
-    def pad2d(a, fill):
-        return jnp.pad(a, (0, pad), constant_values=fill).reshape(
-            rows, pm.LANES)
-
-    cols = ([table.pos_s[:, j] for j in range(dim)]
-            + [table.vel_s[:, j] for j in range(dim)])
-    return ([pad2d(c, 0.0) for c in cols],
-            pad2d(table.slot, geom.k * geom.cells + route.LOCAL))
+    table = pm.build_planes(state.pos, state.vel, state.ids, params, geom,
+                            with_ids=True)
+    return params, state, geom, table
 
 
 @pytest.mark.parametrize("dim", [2, 3])
-def test_place_kernel_matches_jnp(dim):
-    params, state, geom, table, starts = _setup(dim=dim, n=1200)
-    fields2d, slot2d = _inputs_for_place(state, geom, table)
-    a = route.place(fields2d, slot2d, starts, geom, n_pos=dim,
-                    use_kernel=True)       # interpret mode on CPU
-    b = route.place(fields2d, slot2d, starts, geom, n_pos=dim,
-                    use_kernel=False)
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+def test_place_puts_each_particle_in_its_cell(dim):
+    """Each placed slot holds its particle's position, velocity and id,
+    at the particle's own cell."""
+    params, state, geom, table = _setup(dim=dim, n=1200)
+    ok = np.asarray(table.ok)
+    slot = np.asarray(table.slot)[ok]
+    flat = np.asarray(table.planes).reshape(table.planes.shape[0], -1)
+    np.testing.assert_array_equal(flat[:dim, slot].T,
+                                  np.asarray(table.pos_s)[ok])
+    np.testing.assert_array_equal(flat[3:3 + dim, slot].T,
+                                  np.asarray(table.vel_s)[ok])
+    np.testing.assert_array_equal(flat[6, slot],
+                                  np.asarray(table.ids_s)[ok])
+    cid = np.asarray(pm.cell_linear_parts(table.pos_s, params, geom))[ok]
+    np.testing.assert_array_equal(slot % geom.cells, cid)
 
 
 def test_extract_kernel_inverts_place():
-    params, state, geom, table, starts = _setup()
+    """place -> extract round trip through the plain path: gathering any
+    value stack at the particles' slots returns the per-slot values."""
+    params, state, geom, table = _setup()
     vals = jnp.stack([table.planes[0] * 2.0, table.planes[1] + 1.0,
                       table.planes[3] * 0.5 + 3.0])
-    out = route.extract_per_particle(vals, table.shifts, table.slot,
-                                     starts, geom, use_kernel=True)
-    flat = np.asarray(vals).reshape(3, -1)
-    idx = np.minimum(np.asarray(table.slot), flat.shape[1] - 1)
-    ref = np.stack([flat[c][idx] for c in range(3)], axis=-1)
+    out = np.asarray(pm.gather_slots(vals, table.slot, table.ok, -7.0))
     okm = np.asarray(table.ok)
-    np.testing.assert_array_equal(np.asarray(out)[okm], ref[okm])
+    pos = np.asarray(table.pos_s)
+    vel = np.asarray(table.vel_s)
+    np.testing.assert_allclose(out[okm, 0], 2.0 * pos[okm, 0], rtol=0,
+                               atol=0)
+    np.testing.assert_allclose(out[okm, 1], pos[okm, 1] + 1.0, rtol=0,
+                               atol=0)
+    np.testing.assert_allclose(out[okm, 2], vel[okm, 0] * 0.5 + 3.0, rtol=0,
+                               atol=0)
+    assert (out[~okm] == -7.0).all()
 
 
 def test_place_fills_every_particle_once():
-    params, state, geom, table, starts = _setup(n=2500, seed=4)
-    filled = np.asarray(table.shifts) >= 0
-    assert filled.sum() == int(np.asarray(table.ok).sum())
-    # each filled slot's position plane holds a real (non-sentinel) x
+    params, state, geom, table = _setup(n=2500, seed=4)
     px = np.asarray(table.planes[pm.FIELD_X])
-    interior = px[..., 1:-1]  # skip halo lanes (mirrored by halo_x)
-    assert ((interior < pm.SENTINEL * 0.5) == filled[..., 1:-1]).all()
+    filled = px < pm.SENTINEL * 0.5
+    assert filled.sum() == int(np.asarray(table.ok).sum()) == state.n
+    ids = np.asarray(table.planes[6])[filled].astype(int)
+    assert np.array_equal(np.sort(ids), np.arange(state.n))
+    # empty slots carry the empty-slot fills
+    assert (np.asarray(table.planes[6])[~filled] == -1.0).all()
+    assert (np.asarray(table.planes[3])[~filled] == 0.0).all()
 
 
-def _compact_lanes_interp(vals, flag, rows):
-    """compact_lanes uses pltpu.roll, which only evaluates inside a kernel —
-    run it through a single-block interpret-mode pallas_call."""
-    from jax.experimental import pallas as pl
-
-    def kern(f0, f1, f2, fl, o0, o1, o2, ofl, cnt):
-        out, oflag, counts = route.compact_lanes(
-            [f0[...], f1[...], f2[...]], fl[...], rows)
-        o0[...], o1[...], o2[...] = out
-        ofl[...] = oflag
-        cnt[...] = counts
-
-    shp = jax.ShapeDtypeStruct((rows, pm.LANES), jnp.float32)
-    res = pl.pallas_call(
-        kern,
-        out_shape=(shp, shp, shp, shp,
-                   jax.ShapeDtypeStruct((1, pm.LANES), jnp.int32)),
-        interpret=True,
-    )(*vals, flag)
-    return res[:3], res[3], res[4]
+def test_place_drops_rank_overflow():
+    """Cells holding more than K particles keep K of them; the rest are
+    counted, not placed, and never overwrite another slot."""
+    params, state, geom, table = _setup(n=2000, seed=6)
+    params = params.replace(cell_capacity=1)
+    geom = pm.geometry(params)
+    t = pm.build_planes(state.pos, state.vel, state.ids, params, geom)
+    ok = np.asarray(t.ok)
+    filled = np.asarray(t.planes[pm.FIELD_X]) < pm.SENTINEL * 0.5
+    assert filled.sum() == ok.sum()
+    assert int(t.overflow) == state.n - ok.sum() > 0
 
 
-def test_compact_lanes_properties():
-    """Level 1 of the two-level stage compaction: every lane's flagged
-    elements end up contiguous from row 0, in their original row order,
-    with values carried; unflagged destinations are zeroed."""
-    rng = np.random.default_rng(5)
-    rows = route.OUT_ROWS
-    for density in (0.02, 0.3, 0.9):
-        flag = (rng.random((rows, pm.LANES)) < density)
-        vals = [jnp.asarray(rng.normal(size=(rows, pm.LANES)),
-                            jnp.float32) for _ in range(3)]
-        out, oflag, counts = _compact_lanes_interp(
-            vals, jnp.asarray(flag, jnp.float32), rows)
-        of = np.asarray(oflag) > 0.5
-        cnt = flag.sum(axis=0)
-        np.testing.assert_array_equal(np.asarray(counts)[0], cnt)
-        # flagged elements form a per-lane prefix
-        expect = np.arange(rows)[:, None] < cnt[None, :]
-        np.testing.assert_array_equal(of, expect)
-        for v_in, v_out in zip(vals, out):
-            a_in = np.asarray(v_in)
-            a_out = np.asarray(v_out)
-            for lane in range(0, pm.LANES, 17):
-                np.testing.assert_array_equal(
-                    a_out[:cnt[lane], lane], a_in[flag[:, lane], lane])
-
-
-def test_monotone_shift_invariant():
-    """Within each routing tile, placement shifts must be achievable, i.e.
-    targets strictly increase along the slot-sorted particle order."""
-    params, state, geom, table, starts = _setup(n=3000, seed=9)
-    slot = np.asarray(table.slot)
-    ok = np.asarray(table.ok)
-    s = slot[ok]
-    assert (np.diff(s) > 0).all()          # strictly increasing & unique
+def test_slots_unique_and_ranks_dense():
+    """Slots of placed particles are unique (the scatter never collides)
+    and ranks are dense within each cell."""
+    params, state, geom, table = _setup(n=3000, seed=9)
+    slot = np.asarray(table.slot)[np.asarray(table.ok)]
+    assert np.unique(slot).size == slot.size
+    rank, cell = slot // geom.cells, slot % geom.cells
+    for c in np.unique(cell)[:200]:
+        assert sorted(rank[cell == c]) == list(range((cell == c).sum()))

@@ -1,4 +1,4 @@
-"""Default-tier sharded smoke slice (VERDICT round 2 #4): every `pytest -q`
+"""Default-tier sharded smoke slice: every `pytest -q`
 run must compile and execute at least one shard_map program with ppermute
 ghost exchange + mover migration on the 8-virtual-device CPU mesh.  The
 exhaustive sharded equivalence matrix stays in the heavy tier
